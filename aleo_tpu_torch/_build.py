@@ -1,0 +1,81 @@
+"""Builds the CUDA sources of `csrc/` into one shared library at first use.
+
+`nvcc` compiles every `*.cu` under `csrc/` for sm_90a into a shared library
+with a plain C interface, which is loaded with `ctypes`. The library lands in
+`aleo_tpu_torch/_build/`, keyed by a hash of the sources, so an unchanged
+tree builds once. A failed build raises with the compiler's output; nothing
+falls back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib = None
+BUILD_LOG = ""      # nvcc's output (-Xptxas -v: registers and spills per kernel)
+
+
+def _sources():
+    names = sorted(os.listdir(CSRC_DIR))
+    return (
+        [os.path.join(CSRC_DIR, n) for n in names if n.endswith(".cu")],
+        [os.path.join(CSRC_DIR, n) for n in names if n.endswith((".cu", ".cuh"))],
+    )
+
+
+def _find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built now if this source state never was)."""
+    global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    cu, all_src = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in all_src:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    so_path = os.path.join(BUILD_DIR, f"libaleo_kernels_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (" + " ".join(cmd) + "):\n" + BUILD_LOG
+            )
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(so_path)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.fq_mul_launch.argtypes = [P, L, P, L, P, L, I, P]
+    lib.fq_prepare_launch.argtypes = [P] * 11 + [I, P]
+    lib.fq_apply_launch.argtypes = [P] * 12 + [I, P]
+    lib.fq_fermat_launch.argtypes = [P, P, I, P]
+    for fn in (lib.fq_mul_launch, lib.fq_prepare_launch, lib.fq_apply_launch,
+               lib.fq_fermat_launch):
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib

@@ -1,0 +1,433 @@
+"""Pippenger multi-scalar multiplication, batch-affine variable-base path.
+
+Counterpart of the JAX package's `msm/msm.py` on its default (batch-affine)
+pipeline: every KZG commitment of the prover is one MSM over the SRS. The
+formulation makes *buckets* the vector lanes and streams points into them:
+
+  1. signed-digit window decomposition (digits in [-2^(c-1), 2^(c-1)];
+     negating a point is free, which halves the bucket count),
+  2. ONE global sort of all (window, |digit|) keys across every window,
+  3. bucket start/count recovery via searchsorted over the sorted keys,
+  4. round-robin accumulation: round j gathers the j-th point of every
+     (window, bucket) segment and performs one batched affine add over all
+     bucket lanes (`curves.g1_affine.madd`: the four CUDA kernels). The
+     round count is the largest segment, a device value read back once per
+     MSM; the heaviest segments are split over spare lanes first,
+  5. log-depth weighted bucket reduction (tree sums + suffix scans, all as
+     full-width batched affine adds),
+  6. window combine (Horner) on host bigints: the prover's transcript lives
+     on the host anyway.
+
+The sort, searchsorted, argsort and gathers are library calls here as they
+are in the reference (outside any kernel).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from .. import params
+from ..curves import g1, g1_affine as ga, g1_fused as gf
+from ..curves.g1 import G1Points
+from ..curves.g1_affine import G1AF
+from ..curves.g1_fused import G1LF
+from ..fields import limbs
+from ..fields.limbs import STORE
+
+NBITS = params.R.bit_length()  # 253
+
+
+def auto_c(n: int) -> int:
+    """Pippenger window size for an n-point MSM: ~log2(n) - 2 balances the
+    bucket-lane count (W * 2^(c-1)) against the round count (max bucket
+    occupancy ~ n / 2^(c-1) + tail). Same rule as the reference, so both
+    build the same lane grids."""
+    return max(3, min(12, n.bit_length() - 2))
+
+
+def _nwin(c: int) -> int:
+    # +1 bit of headroom so the signed-digit carry out of the top window
+    # is always absorbed (relevant when c divides NBITS).
+    return math.ceil((NBITS + 1) / c)
+
+
+def signed_digits(scalars_raw: torch.Tensor, c: int) -> torch.Tensor:
+    """(N, FR_LIMBS) raw 16-bit limbs -> (W, N) int32 signed window digits.
+
+    Digits lie in [-(2^(c-1)-1), 2^(c-1)] and satisfy
+    sum_w d_w 2^(cw) == scalar. Requires c <= 16.
+    """
+    assert 2 <= c <= 16
+    n = scalars_raw.shape[0]
+    w_total = _nwin(c)
+    half = 1 << (c - 1)
+    padded = torch.cat(
+        [scalars_raw.to(torch.int64),
+         torch.zeros((n, 2), dtype=torch.int64, device=scalars_raw.device)],
+        dim=-1,
+    )
+    carry = torch.zeros((n,), dtype=torch.int64, device=scalars_raw.device)
+    out = []
+    for w in range(w_total):
+        bit0 = w * c
+        j0, sh = bit0 // 16, bit0 % 16
+        v = padded[:, j0] | (padded[:, j0 + 1] << 16)
+        d = ((v >> sh) & ((1 << c) - 1)) + carry
+        big = d > half
+        out.append(torch.where(big, d - (1 << c), d))
+        carry = big.to(torch.int64)
+    return torch.stack(out, dim=0).to(torch.int32)
+
+
+def make_table(points: G1Points) -> torch.Tensor:
+    """(N,)-batched points -> (N, 2L) int32 gather table of [x|y] rows.
+
+    Affine rows. Identity points are stored as the off-curve sentinel (0, 0)
+    (y^2 = x^3 + 1 has no point with y = 0), which the accumulation masks
+    like an invalid lane.
+    """
+    ident = (points.z == 0).all(dim=-1, keepdim=True)
+    xy = torch.cat([points.x, points.y], dim=-1)
+    return torch.where(ident, torch.zeros_like(xy), xy)
+
+
+def _top_window_split(c: int, w_total: int) -> tuple:
+    """(effective top-window bucket count, sub-split factor).
+
+    The top window covers only `NBITS+1 - c*(W-1)` bits, so its digit range
+    (and occupied bucket count) is far below 2^(c-1); without correction its
+    buckets hold ~n/2^(top_bits) entries and they alone set the round count.
+    Splitting each top bucket across the window's unused lanes restores
+    uniform occupancy; the sub-accumulators are merged afterwards by log2(s)
+    masked adds.
+    """
+    half = 1 << (c - 1)
+    top_bits = (NBITS + 1) - c * (w_total - 1)
+    mag_top = min(1 << top_bits, half)
+    return mag_top, half // mag_top
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_layout_np(c: int, w_total: int):
+    """Static per-lane layout (numpy): sub offsets, strides, merge masks,
+    and the post-merge reshuffle.
+
+    Lane grid: W * half lanes, window-major. Normal windows: one lane per
+    bucket (stride 1). Top window: bucket b's segment is interleaved across s
+    lanes (stride s); merge mask d selects lanes with sub % 2^(d+1) == 0 and
+    sub + 2^d < s.
+    """
+    half = 1 << (c - 1)
+    mag_top, s = _top_window_split(c, w_total)
+    lanes = w_total * half
+    iota = np.arange(lanes)
+    win = (iota // half) % w_total
+    lane_in_win = iota % half
+    is_top = win == (w_total - 1)
+    sub = np.where(is_top, lane_in_win % s, 0)
+    bucket = np.where(is_top, lane_in_win // s, lane_in_win)
+    stride = np.where(is_top, s, 1).astype(np.int64)
+    merge_masks = []
+    d = 1
+    while d < s:
+        merge_masks.append(
+            (is_top & (sub % (2 * d) == 0) & (sub + d < s)).astype(np.int32)
+        )
+        d *= 2
+    # reshuffle: the weighted scan wants bucket b's total at lane index b
+    # within its window; merged totals sit at sub-lane 0 (lane b*s).
+    src = np.where(
+        is_top & (lane_in_win < mag_top),
+        iota - lane_in_win + lane_in_win * s,
+        iota,
+    ).astype(np.int64)
+    keep = (~is_top | (lane_in_win < mag_top)).astype(np.int32)
+    return (
+        sub.astype(np.int64), bucket.astype(np.int64), stride,
+        merge_masks, src, keep, s,
+    )
+
+
+def _bucket_grid(sorted_keys: torch.Tensor, c: int, w_total: int):
+    """(lane_start, lane_stride, lane_count) int64 tensors over the lane grid,
+    with top-window sub-splitting applied."""
+    half = 1 << (c - 1)
+    dev = sorted_keys.device
+    sub_np, bucket_np, stride_np, merge_masks, src_np, keep_np, s = (
+        _lane_layout_np(c, w_total)
+    )
+    qwin = torch.arange(w_total, dtype=torch.int64, device=dev).repeat_interleave(half)
+    qmag = torch.from_numpy(bucket_np).to(dev) + 1
+    qkeys = (qwin << c) | qmag
+    starts = torch.searchsorted(sorted_keys, qkeys, right=False)
+    ends = torch.searchsorted(sorted_keys, qkeys, right=True)
+    counts = ends - starts
+    sub = torch.from_numpy(sub_np).to(dev)
+    stride = torch.from_numpy(stride_np).to(dev)
+    lane_start = starts + sub
+    lane_count = torch.clamp((counts - sub + stride - 1) // stride, min=0)
+    return lane_start, stride, lane_count, merge_masks, src_np, keep_np, s
+
+
+# Overflow balancing: fraction of extra "spare" lanes that adopt the second
+# half of the heaviest buckets' segments. The round count is the MAX segment
+# length (the occupancy tail is about twice the mean), so splitting just the
+# heavy tail cuts rounds for a few more lanes.
+OVERFLOW_FRAC = 8  # spares = lanes // OVERFLOW_FRAC
+
+
+def run_rounds_af(sorted_pt, sorted_sign, table, lane_start, lane_stride,
+                  lane_count, m_exp: int, balance: bool = True) -> G1AF:
+    """Round-robin batch-affine accumulation over a (start, stride, count)
+    lane grid, with tail balancing: the lanes//OVERFLOW_FRAC heaviest
+    segments are split in half, the second halves ride spare lanes, and the
+    spares merge back with one masked add.
+
+    sorted_pt / sorted_sign: (m_exp,) point index and sign of every sorted
+    (window, digit) entry (kept apart: sign << 31 | id does not fit int32).
+    """
+    L = table.shape[1] // 2
+    dev = table.device
+    lanes = lane_start.shape[0]
+    n_spare = lanes // OVERFLOW_FRAC if balance else 0
+    if n_spare:
+        order = torch.argsort(lane_count, descending=True, stable=True)
+        tgt = order[:n_spare]                          # heaviest mains
+        is_split = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+        is_split[tgt] = True
+        h = torch.where(is_split, (lane_count + 1) // 2, lane_count)
+        all_start = torch.cat(
+            [lane_start, lane_start[tgt] + h[tgt] * lane_stride[tgt]]
+        )
+        all_stride = torch.cat([lane_stride, lane_stride[tgt]])
+        all_count = torch.cat([h, lane_count[tgt] - h[tgt]])
+    else:
+        all_start, all_stride, all_count = lane_start, lane_stride, lane_count
+    total = lanes + n_spare
+    # the one device->host read of an MSM: how many rounds its data needs
+    max_count = int(all_count.max().item())
+    acc = ga.identity_af(total, device=dev)
+
+    for j in range(max_count):
+        pos = torch.clamp(all_start + j * all_stride, max=m_exp - 1)
+        valid = (j < all_count).to(STORE)
+        coords = table[sorted_pt[pos]].T.contiguous()       # (2L, total)
+        px, py = coords[:L], coords[L:]
+        # identity sentinel (0, 0): y == 0 never occurs in the subgroup
+        pinf = (py.amax(dim=0, keepdim=True) == 0).to(STORE)
+        acc = ga.madd(acc, px, py, pinf, sorted_sign[pos], valid)
+
+    main = G1AF(acc.x[:, :lanes], acc.y[:, :lanes], acc.inf[:, :lanes])
+    if n_spare:
+        # merge spares back into their buckets: one masked add with a
+        # runtime partner gather (pidx[i] = spare index serving main i)
+        pidx = torch.zeros((lanes,), dtype=torch.int64, device=dev)
+        pidx[tgt] = torch.arange(n_spare, dtype=torch.int64, device=dev)
+        sx, sy, sinf = acc.x[:, lanes:], acc.y[:, lanes:], acc.inf[:, lanes:]
+        partner = G1AF(sx[:, pidx], sy[:, pidx], sinf[:, pidx])
+        main = ga.add_pairs(main, partner, valid=is_split.to(STORE))
+    return main
+
+
+def _accumulate_buckets_af(
+    sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
+    merge_masks, src_np, keep_np, m_exp: int, half: int,
+) -> G1AF:
+    """Round-robin batch-affine accumulation + top-window merge/reshuffle.
+    `half` is the lane count of one window."""
+    dev = table.device
+    lanes = lane_start.shape[0]
+    acc = run_rounds_af(
+        sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count, m_exp
+    )
+
+    # merge the top window's sub-accumulators: log2(s) masked adds over that
+    # window's lanes alone (the last `half` lanes of the grid; no other lane
+    # has a partner)
+    if len(merge_masks):
+        top = G1AF(acc.x[:, -half:], acc.y[:, -half:], acc.inf[:, -half:])
+        iota = torch.arange(half, device=dev)
+        shift = 1
+        for mask_np in merge_masks:
+            idx = torch.clamp(iota + shift, max=half - 1)
+            partner = G1AF(top.x[:, idx], top.y[:, idx], top.inf[:, idx])
+            mask = torch.from_numpy(mask_np[-half:]).to(dev)
+            top = ga.add_pairs(top, partner, valid=mask)
+            shift *= 2
+        acc = G1AF(
+            torch.cat([acc.x[:, :-half], top.x], dim=1),
+            torch.cat([acc.y[:, :-half], top.y], dim=1),
+            torch.cat([acc.inf[:, :-half], top.inf], dim=1),
+        )
+        src = torch.from_numpy(src_np).to(dev)
+        keep = torch.from_numpy(keep_np).to(dev)[None, :] != 0
+        acc = G1AF(
+            torch.where(keep, acc.x[:, src], 0),
+            torch.where(keep, acc.y[:, src], 0),
+            torch.where(keep, acc.inf[:, src], 1),
+        )
+    return acc
+
+
+def _scan_add_buckets_af(p: G1AF, w: int, b: int) -> G1AF:
+    """Hillis-Steele suffix scan along the bucket axis:
+    out[b'] = sum_{k >= b'} p[k] within each window."""
+    L = p.x.shape[0]
+    x, y, inf = p.x, p.y, p.inf
+    s = 1
+    while s < b:
+
+        def shc(a, rows, fill):
+            a3 = a.reshape(rows, w, b)
+            tail = torch.full((rows, w, s), fill, dtype=a.dtype, device=a.device)
+            return torch.cat([a3[:, :, s:], tail], dim=2).reshape(rows, -1)
+
+        r = ga.add_pairs(
+            G1AF(x, y, inf), G1AF(shc(x, L, 0), shc(y, L, 0), shc(inf, 1, 1))
+        )
+        x, y, inf = r.x, r.y, r.inf
+        s *= 2
+    return G1AF(x, y, inf)
+
+
+def _tree_sum_axis_af(p: G1AF, L: int, pre: int, b: int, post: int) -> G1AF:
+    """Halving tree reduction over the middle axis of a (rows, pre, b, post)
+    lane view. Work ~2x one full-width add."""
+    x, y, inf = p.x, p.y, p.inf
+    while b > 1:
+        half = b // 2
+
+        def split(a, rows):
+            a4 = a.reshape(rows, pre, b, post)
+            return (
+                a4[:, :, :half].reshape(rows, -1),
+                a4[:, :, half:].reshape(rows, -1),
+            )
+
+        (xl, xh) = split(x, L)
+        (yl, yh) = split(y, L)
+        (il, ih) = split(inf, 1)
+        s = ga.add_pairs(G1AF(xl, yl, il), G1AF(xh, yh, ih))
+        x, y, inf, b = s.x, s.y, s.inf, half
+    return G1AF(x, y, inf)
+
+
+def _first_bucket_af(p: G1AF, w: int, b: int) -> G1AF:
+    L = p.x.shape[0]
+    return G1AF(
+        p.x.reshape(L, w, b)[:, :, 0],
+        p.y.reshape(L, w, b)[:, :, 0],
+        p.inf.reshape(1, w, b)[:, :, 0],
+    )
+
+
+def _weighted_bucket_sum_af(p: G1AF, w: int, b: int) -> G1AF:
+    """sum_i (i+1) * S_i per window -> (L, w) window totals.
+
+    Chunked formulation: with i = hi*G + lo,
+      sum (i+1) S_i = G * sum_hi hi*A_hi + sum_lo (lo+1)*B_lo,
+    where A_hi/B_lo are tree sums over the other sub-axis: the big-width
+    work is two tree reductions instead of 2*log2(b) full-width adds.
+    """
+    L = p.x.shape[0]
+    if b <= 64:
+        q = _scan_add_buckets_af(p, w, b)
+        q = _scan_add_buckets_af(q, w, b)
+        return _first_bucket_af(q, w, b)
+    g = (b.bit_length() - 1) // 2
+    G = 1 << g
+    H = b // G
+    A = _tree_sum_axis_af(p, L, w * H, G, 1)            # (L, w*H)
+    B = _tree_sum_axis_af(p, L, w, H, G)                # (L, w*G)
+
+    def shift_left(a, rows, fill):
+        a3 = a.reshape(rows, w, H)
+        tail = torch.full((rows, w, 1), fill, dtype=a.dtype, device=a.device)
+        return torch.cat([a3[:, :, 1:], tail], dim=2).reshape(rows, -1)
+
+    # X = sum_hi hi * A_hi == sum_k (k+1) * A[k+1]  (shift A left by one)
+    A1 = G1AF(
+        shift_left(A.x, L, 0), shift_left(A.y, L, 0), shift_left(A.inf, 1, 1)
+    )
+    X = _scan_add_buckets_af(A1, w, H)
+    X = _scan_add_buckets_af(X, w, H)
+    X = _first_bucket_af(X, w, H)                       # (L, w)
+    Y = _scan_add_buckets_af(B, w, G)
+    Y = _scan_add_buckets_af(Y, w, G)
+    Y = _first_bucket_af(Y, w, G)                       # (L, w)
+    for _ in range(g):                                  # G * X
+        X = ga.double_af(X)
+    return ga.add_pairs(X, Y)
+
+
+def msm_windows(scalars_raw: torch.Tensor, table: torch.Tensor, c: int) -> G1LF:
+    """Per-window MSM totals: G1LF with batch axis = window index (W lanes).
+
+    scalars_raw: (N, FR_LIMBS) int32 standard-form 16-bit limbs (lazy < 2r
+    allowed: the group order absorbs +r and the digits cover 254 bits).
+    table: (N, 2L) gather table from `make_table`, on the same device.
+    """
+    n = table.shape[0]
+    dev = table.device
+    w_total = _nwin(c)
+    half = 1 << (c - 1)
+    m_exp = w_total * n  # expanded (window, point) pairs
+
+    digits = signed_digits(scalars_raw, c)  # (W, N) int32
+    mag = digits.abs().to(torch.int64)
+    sign = (digits < 0).to(STORE)
+
+    win_ids = torch.arange(w_total, dtype=torch.int64, device=dev).repeat_interleave(n)
+    keys = (win_ids << c) | mag.reshape(-1)
+    pt_ids = torch.arange(n, dtype=torch.int64, device=dev).repeat(w_total)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    sorted_pt = pt_ids[perm]
+    sorted_sign = sign.reshape(-1)[perm]
+
+    lane_start, lane_stride, lane_count, merge_masks, src_np, keep_np, _s = (
+        _bucket_grid(sorted_keys, c, w_total)
+    )
+    buckets = _accumulate_buckets_af(
+        sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
+        merge_masks, src_np, keep_np, m_exp, half,
+    )
+    return ga.to_lf(_weighted_bucket_sum_af(buckets, w_total, half))
+
+
+def combine_windows_host(windows: G1LF, c: int):
+    """Decode per-window totals and Horner-combine with host bigints."""
+    from ..reference.curve import G1
+
+    pts = gf.decode_lf(windows)  # [(x, y) | None] length W
+    acc = None
+    for p in reversed(pts):
+        for _ in range(c):
+            acc = G1.double(acc)
+        acc = G1.add(acc, p)
+    return acc
+
+
+def msm_fast_host(scalars_raw: torch.Tensor, table: torch.Tensor, c: int | None = None):
+    """Device bucket pipeline + host window combine -> host affine point.
+
+    The path the prover takes: commitments are decoded for the Fiat-Shamir
+    transcript anyway, and the ~250-doubling window-combine chain is cheaper
+    as host bigint math than as sequential device launches.
+    """
+    if c is None:
+        c = auto_c(scalars_raw.shape[0])
+    return combine_windows_host(msm_windows(scalars_raw, table, c=c), c)
+
+
+def msm_host(scalars, points_affine, c: int | None = None, device=None):
+    """Convenience host wrapper: python ints / host points -> host point."""
+    device = limbs.resolve_device(device)
+    sc = limbs.to_tensor(
+        limbs.ints_to_limbs([s % params.R for s in scalars], params.FR_LIMBS), device
+    )
+    pts = g1.encode_points(points_affine, device=device)
+    return msm_fast_host(sc, make_table(pts), c=c)

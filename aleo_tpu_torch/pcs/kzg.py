@@ -1,0 +1,163 @@
+"""KZG polynomial commitments (commit/open/batch-open) + host verify.
+
+Counterpart of the JAX package's `pcs/kzg.py` on its limbs-first API.
+Commitments and opening proofs are MSMs over the SRS: they run the port's
+device MSM (`msm/msm.py`, batch-affine kernels) on whichever device the SRS
+lies; there is no host-MSM diversion. Verification is host-side pairing
+algebra.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from .. import params
+from ..curves.g1 import G1Points
+from ..curves import g1_fused as gf
+from ..fields import fr_lf as flf
+from ..msm.msm import auto_c, combine_windows_host, make_table, msm_fast_host, msm_windows
+from ..reference.curve import G1, G2, pairing_check
+from ..utils import profiling as prof
+from . import poly_lf as pl_lf
+from .srs import Srs
+
+R = params.R
+
+
+def _table(srs: Srs, start: int, n: int) -> torch.Tensor:
+    p = srs.powers
+    return make_table(G1Points(
+        p.x[start : start + n], p.y[start : start + n], p.z[start : start + n]
+    ))
+
+
+def _pad_size(srs: Srs, n: int, shift: int = 0) -> int:
+    """Lengths are padded up to a power of two, so MSM lane grids come in a
+    few size classes."""
+    n_pad = min(1 << max(2, (n - 1).bit_length()), srs.max_degree + 1 - shift)
+    return max(n, n_pad)
+
+
+def verify(srs: Srs, commitment, z: int, y: int, proof_w) -> bool:
+    """Host pairing check: e(C - yG, H) == e(W, [tau]H - zH), i.e.
+    e(C - yG, H) * e(-W, tauH - zH) == 1."""
+    c_minus_y = G1.add(commitment, G1.neg(G1.mul(y, G1.generator())))
+    tau_minus_z = G2.add(srs.g2_tau, G2.neg(G2.mul(z, srs.g2_gen)))
+    return pairing_check(
+        [(c_minus_y, srs.g2_gen), (G1.neg(proof_w), tau_minus_z)]
+    )
+
+
+# -- limbs-first API (prover pipeline; (L, n) coefficient tensors) --------------
+
+
+def commit_lf(srs: Srs, coeffs_lf: torch.Tensor, c: int | None = None):
+    """Commit a limbs-first (L, n) coefficient tensor -> host affine point:
+    from_mont (lazy ok: the group order r absorbs the +r ambiguity, and the
+    digits cover 254 bits) -> device bucket MSM -> host window combine."""
+    return commit_shifted_lf(srs, coeffs_lf, 0, c=c)
+
+
+def commit_shifted_lf(srs: Srs, coeffs_lf: torch.Tensor, shift: int,
+                      c: int | None = None):
+    """Commit to X^shift * p(X) without materializing the zero prefix:
+    an MSM of p's coefficients against SRS points [shift, shift+n).
+
+    The degree-bound commitments (snark/prover.py) are X^(D-d) * g with D
+    the SRS degree: the same group element as the dense degree-D commitment,
+    from an n-point MSM.
+    """
+    n = coeffs_lf.shape[1]
+    assert shift + n <= srs.max_degree + 1, "shifted polynomial exceeds SRS"
+    prof.counter("kzg/commit_points", n)
+    with prof.stage("kzg/commit"):
+        coeffs_lf = pl_lf.pad_to(coeffs_lf, _pad_size(srs, n, shift))
+        raw = flf.from_mont(coeffs_lf).T.contiguous()
+        table = _table(srs, shift, coeffs_lf.shape[1])
+        return msm_fast_host(raw, table, c=c)
+
+
+def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
+    """Commit a list of limbs-first polynomials, grouped by padded size.
+
+    A size group shares one gather table; its MSMs run one after another and
+    the per-window totals of the whole group are read back in ONE host
+    transfer. shift > 0 commits X^shift * p_i against the sliced SRS
+    (shared-offset degree-bound commitments).
+    """
+    groups = {}
+    for i, p in enumerate(polys_lf):
+        groups.setdefault(_pad_size(srs, p.shape[1], shift), []).append(i)
+    out = [None] * len(polys_lf)
+    for n_pad, idxs in groups.items():
+        assert shift + n_pad <= srs.max_degree + 1
+        table = _table(srs, shift, n_pad)
+        cg = c if c is not None else auto_c(n_pad)
+        wins = []
+        for i in idxs:
+            prof.counter("kzg/commit_points", polys_lf[i].shape[1])
+            with prof.stage("kzg/commit"):
+                raw = flf.from_mont(pl_lf.pad_to(polys_lf[i], n_pad)).T.contiguous()
+                wins.append(msm_windows(raw, table, c=cg))
+        W = wins[0].x.shape[1]
+        # one device->host transfer for the whole group
+        allw = gf.G1LF(*(
+            torch.cat([getattr(w, k) for w in wins], dim=1).cpu() for k in "xyz"
+        ))
+        for j, i in enumerate(idxs):
+            out[i] = combine_windows_host(
+                gf.G1LF(*(a[:, j * W : (j + 1) * W] for a in allw)), cg
+            )
+    return out
+
+
+def open_at_lf(srs: Srs, coeffs_lf: torch.Tensor, z_lf: torch.Tensor, c: int | None = None):
+    """Opening proof W = [q(tau)]G, limbs-first. Returns (W host point,
+    y (L, 1) Montgomery evaluation)."""
+    q, y = pl_lf.divide_by_linear_via_domain(coeffs_lf, z_lf)
+    w = commit_lf(srs, q, c=c)
+    return w, y
+
+
+def batch_open_at_lf(
+    srs: Srs,
+    polys_lf: Sequence[torch.Tensor],
+    z_lf: torch.Tensor,
+    gamma_lf: torch.Tensor,
+    c: int | None = None,
+    compute_evals: bool = True,
+):
+    """Single opening proof for many limbs-first polynomials at one point via
+    the random linear combination sum gamma^i p_i. Returns (W, [y_i]).
+
+    compute_evals=False skips the per-polynomial evaluations when the caller
+    already holds them (the prover evaluates all of them in one batch before
+    the transcript absorbs them)."""
+    ys = [pl_lf.eval_coeffs(p, z_lf) for p in polys_lf] if compute_evals else None
+    max_len = max(p.shape[1] for p in polys_lf)
+    stack = torch.stack([pl_lf.pad_to(p, max_len) for p in polys_lf], dim=1)
+    gpows = flf.powers(gamma_lf, len(polys_lf))          # (L, k)
+    acc = pl_lf.fold_stack(stack, gpows)
+    w, _ = open_at_lf(srs, acc, z_lf, c=c)
+    return w, ys
+
+
+def batch_verify(
+    srs: Srs,
+    commitments: Sequence,
+    z: int,
+    ys: Sequence[int],
+    gamma: int,
+    proof_w,
+) -> bool:
+    """Host verification of a batched opening."""
+    acc_c = None
+    acc_y = 0
+    gp = 1
+    for cm, y in zip(commitments, ys):
+        acc_c = G1.add(acc_c, G1.mul(gp, cm))
+        acc_y = (acc_y + gp * y) % R
+        gp = gp * gamma % R
+    return verify(srs, acc_c, z, acc_y, proof_w)

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where the time of one proof goes on the GPU (aleo_tpu_torch).
+
+    python3 scripts/torch_profile_proof.py [micro|transfer] [out.json]
+
+Synthesises keys, proves once to warm up (tables, allocator), then proves
+once more under `torch.profiler` and prints one JSON object: the proof's wall
+seconds with and without the profiler, the summed device time of all kernels,
+the device's busy share (summed kernel time over wall time: one stream, so
+kernels do not overlap), the number of kernel launches, and the kernels with
+the most device time. Needs a CUDA device.
+"""
+
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from aleo_tpu_torch.curves import g1_affine as ga
+from aleo_tpu_torch.pcs.srs import Srs
+from aleo_tpu_torch.program.examples import load_example
+from aleo_tpu_torch.program.interpreter import Registry
+from aleo_tpu_torch.program.parser import parse_program
+from aleo_tpu_torch.program.values import Record, Value
+from aleo_tpu_torch.snark import pipeline
+from aleo_tpu_torch.utils import profiling as prof
+
+MICRO = """
+program micro.aleo;
+
+function bump:
+    input r0 as u64.private;
+    add r0 1u64 into r1;
+    output r1 as u64.private;
+"""
+
+
+def main(argv):
+    which = argv[0] if argv else "transfer"
+    out_path = argv[1] if len(argv) > 1 else None
+    if not torch.cuda.is_available():
+        sys.exit("torch_profile_proof: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    if which == "micro":
+        reg = Registry()
+        reg.add(parse_program(MICRO))
+        pid, fn, deg, caller = "micro.aleo", "bump", 8193, 0
+        inputs = [Value("u64", 41)]
+    else:
+        reg = load_example("simple_token")
+        pid, fn, deg, caller = "token.aleo", "transfer", 32769, 123456789
+        rec = Record("token.aleo", "token", owner=caller, gates=0,
+                     entries={"amount": Value("u64", 500)}, nonce=7)
+        inputs = [rec, Value("address", 987654321), Value("u64", 120)]
+    srs = Srs.generate(deg)
+    keys = pipeline.synthesize_keys(reg, pid, fn, srs=srs, cache=False)
+
+    def prove():
+        ep = pipeline.prove_execution(keys, reg, inputs, caller=caller,
+                                      rng_nonce=lambda: 11, rng=random.Random(3))
+        torch.cuda.synchronize()
+        return ep
+
+    prove()                                   # warm-up
+    prof.reset()
+    prof.enable()
+    t0 = time.time()
+    ep = prove()
+    plain_s = time.time() - t0
+    stages = prof.report()
+    prof.enable(False)
+    assert pipeline.verify_execution(keys, ep)
+
+    ga.reset_launches()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        prove()
+    traced_s = time.time() - t0
+    rows = []
+    events = list(p.key_averages())
+    # kernel rows only: an operator's row repeats the time of its kernels
+    on_device = [ev for ev in events
+                 if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    for ev in on_device or events:
+        own = getattr(ev, "self_device_time_total", None)
+        if own is None:
+            own = getattr(ev, "self_cuda_time_total", 0)
+        if own > 0:
+            rows.append((ev.key, own, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    device_s = sum(r[1] for r in rows) / 1e6
+    result = {
+        "card": card, "circuit": which, "n": keys.index.n, "m": keys.index.m,
+        "proof_seconds": plain_s, "proof_seconds_traced": traced_s,
+        "device_kernel_seconds": device_s,
+        "device_busy_share_traced": device_s / traced_s if traced_s else None,
+        "device_busy_share_of_untraced_wall": device_s / plain_s if plain_s else None,
+        "kernel_launches": sum(r[2] for r in rows),
+        "port_kernel_launches": dict(ga.LAUNCHES),
+        "stages": stages,
+        "top_kernels": [
+            {"name": k[:80], "device_ms": us / 1e3, "count": c} for k, us, c in rows[:20]
+        ],
+    }
+    text = json.dumps(result)
+    print(text)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            f.write(text + "\n")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,95 @@
+"""The port stands apart from the JAX package: it imports neither `jax` nor
+anything of `aleo_tpu`, and its entry points default to the GPU and raise
+without one."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "aleo_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "aleo_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_file_imports_nothing_of_jax_or_the_jax_package(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_importing_the_port_does_not_load_jax():
+    mods = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in _port_files() if p.name not in ("__init__.py", "chip_smoke.py")
+    ]
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aleo_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    # -S -E: skip site customisation, which may import jax on its own
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True
+    )
+    if proc.returncode and "No module named" in proc.stderr and "torch" in proc.stderr:
+        pytest.fail(proc.stderr)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    import torch
+
+    from aleo_tpu_torch.curves import g1_affine
+    from aleo_tpu_torch.fields import fr_lf
+    from aleo_tpu_torch.msm import msm
+    from aleo_tpu_torch.pcs.srs import Srs
+    from aleo_tpu_torch.program.interpreter import Registry
+    from aleo_tpu_torch.snark import indexer, pipeline
+    from aleo_tpu_torch.snark.r1cs import ConstraintSystem
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    calls = [
+        lambda: fr_lf.encode([1, 2]),
+        lambda: fr_lf.one(4),
+        lambda: g1_affine.identity_af(8),
+        lambda: msm.msm_host([1], [None]),
+        lambda: Srs.generate(4),
+        lambda: indexer.index_r1cs(ConstraintSystem()),
+        lambda: pipeline.synthesize_keys(Registry(), "x.aleo", "f"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_chip_smoke_fails_without_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
