@@ -1,7 +1,8 @@
 """Builds the CUDA sources of `csrc/` into one shared library at first use.
 
-`nvcc` compiles every `*.cu` under `csrc/` for sm_90a into a shared library
-with a plain C interface, which is loaded with `ctypes`. The library lands in
+`nvcc` compiles every `*.cu` under `csrc/` for sm_90a, one compiler process
+for each source and all of them at once, and links the objects into a shared
+library with a plain C interface, which is loaded with `ctypes`. It lands in
 `aleo_tpu_torch/_build/`, keyed by a hash of the sources, so an unchanged
 tree builds once. A failed build raises with the compiler's output; nothing
 falls back to another implementation.
@@ -21,7 +22,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -60,13 +61,31 @@ def library() -> ctypes.CDLL:
     if not os.path.exists(so_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (" + " ".join(cmd) + "):\n" + BUILD_LOG
-            )
+        nvcc = _find_nvcc()
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
+        cmds = [
+            [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src]
+            for src, obj in zip(cu, objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for cmd in cmds
+        ]
+        cmds.append([nvcc, "-shared", "-o", tmp, *objs])
+        outs = [proc.communicate()[0] for proc in procs]
+        failed = [proc.returncode != 0 for proc in procs]
+        if not any(failed):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            outs.append(link.stdout + link.stderr)
+            failed.append(link.returncode != 0)
+        BUILD_LOG = "".join(outs)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if any(failed):
+            bad = [" ".join(cmd) for cmd, f in zip(cmds, failed) if f]
+            raise RuntimeError("nvcc failed (" + "; ".join(bad) + "):\n" + BUILD_LOG)
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
@@ -74,8 +93,12 @@ def library() -> ctypes.CDLL:
     lib.fq_prepare_launch.argtypes = [P] * 11 + [I, P]
     lib.fq_apply_launch.argtypes = [P] * 12 + [I, P]
     lib.fq_fermat_launch.argtypes = [P, P, I, P]
+    lib.fmat_reduce_launch.argtypes = [P, P, I, P, P]
+    lib.fmat_carry2d_launch.argtypes = [P, P, I, I, P]
+    lib.fmat_carry3d_launch.argtypes = [P, P, I, I, I, P]
     for fn in (lib.fq_mul_launch, lib.fq_prepare_launch, lib.fq_apply_launch,
-               lib.fq_fermat_launch):
+               lib.fq_fermat_launch, lib.fmat_reduce_launch,
+               lib.fmat_carry2d_launch, lib.fmat_carry3d_launch):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

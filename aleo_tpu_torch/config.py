@@ -3,8 +3,15 @@
   ALEO_TORCH_SRS_DIR     SRS cache directory           (~/.aleo_tpu_torch/srs)
   ALEO_TORCH_KEY_DIR     function-key cache directory  (~/.aleo_tpu_torch/keys)
   ALEO_TORCH_PROFILE     enable the stage timers       (0)
+  ALEO_TORCH_MATNTT_MIN  smallest power-of-two transform that runs as MatNTT
+                         (int8 matrix products, ntt/matntt.py); smaller ones
+                         run the butterfly network of ntt/ntt.py   (16384)
+  ALEO_TORCH_FUSED_REDUCE  1: MatNTT's Montgomery reduction is one kernel
+                         (fmat_reduce); 0: the chain of carry kernels and
+                         band products it fuses                    (1)
 
-The port has one path: butterfly NTT and variable-base batch-affine MSM.
+The port has two NTT paths, chosen by size alone, and one MSM path
+(variable-base, batch-affine).
 """
 
 from __future__ import annotations
@@ -18,3 +25,12 @@ def _env(name: str, default: str) -> str:
 
 SRS_DIR = os.path.expanduser(_env("ALEO_TORCH_SRS_DIR", "~/.aleo_tpu_torch/srs"))
 KEY_DIR = os.path.expanduser(_env("ALEO_TORCH_KEY_DIR", "~/.aleo_tpu_torch/keys"))
+
+# MatNTT threshold: power-of-two transforms with n >= this run as int8 matrix
+# products plus one fused reduction per stage; the twin of the JAX package's
+# MATNTT_MIN_N, with its default.
+MATNTT_MIN_N = int(_env("ALEO_TORCH_MATNTT_MIN", str(1 << 14)))
+
+# Fuse each MatNTT reduction chain (carry -> N' product -> carry -> p product
+# + add -> carry) into one kernel launch. 0 runs the unfused chain.
+FUSED_REDUCE = _env("ALEO_TORCH_FUSED_REDUCE", "1") not in ("0", "false")

@@ -1,14 +1,20 @@
-"""Radix-2 NTT/iNTT over Fr (butterfly network), plain PyTorch.
+"""NTT/iNTT over Fr: the entry points and the radix-2 butterfly network.
 
-Counterpart of the JAX package's `ntt/ntt.py` on its butterfly path, which
-is what that package runs at every size on the CPU. The prover evaluates
-and interpolates polynomials over two-adic subgroups of Fr (2-adicity 47)
-and their cosets.
+Counterpart of the JAX package's `ntt/ntt.py`. The prover evaluates and
+interpolates polynomials over two-adic subgroups of Fr (2-adicity 47) and
+their cosets. Two paths, chosen by size alone (`_use_matntt`): a
+power-of-two transform of `config.MATNTT_MIN_N` (2^14) lanes and more runs
+as MatNTT (`ntt/matntt.py`: int8 matrix products and one fused reduction
+kernel per stage), a smaller one runs the butterfly network below, in
+plain PyTorch. The reference takes MatNTT only on its accelerator; the
+port takes it on every device, so the CPU tests run the path the GPU runs,
+with the kernels' plain versions. MatNTT's output is lazy (< 1.1p), the
+butterfly's < 2p; callers accept either.
 
-Design: iterative Cooley-Tukey DIT. One bit-reversal gather, then log2(n)
-stages; each stage views the lanes as (blocks, 2, half), multiplies the
-upper halves by the stage's twiddles (n/2 field muls, no partner gathers,
-no selects) and writes lo +- t. One transform serves every size.
+The butterfly: iterative Cooley-Tukey DIT. One bit-reversal gather, then
+log2(n) stages; each stage views the lanes as (blocks, 2, half), multiplies
+the upper halves by the stage's twiddles (n/2 field muls, no partner
+gathers, no selects) and writes lo +- t.
 
 Domain tables (root powers, bit-reversal permutation, coset scalings) are
 host-precomputed per size and cached; device copies are made once per
@@ -22,10 +28,11 @@ import functools
 import numpy as np
 import torch
 
-from .. import params
+from .. import config, params
 from ..fields import fr_lf as lf
 from ..fields import limbs
 from ..reference.field import fr_root_of_unity
+from . import matntt
 
 R = params.R
 L = lf.L
@@ -148,15 +155,26 @@ def intt(x: torch.Tensor) -> torch.Tensor:
     return lf.normalize(intt_lf(x.T)).T.contiguous()
 
 
+# -- MatNTT dispatch -------------------------------------------------------------
+
+
+def _use_matntt(n: int) -> bool:
+    return n >= config.MATNTT_MIN_N and n & (n - 1) == 0
+
+
 # -- limbs-first API (prover pipeline) ------------------------------------------
 
 
 def ntt_lf(x: torch.Tensor) -> torch.Tensor:
     """Forward NTT on (L, n) limbs-first tensors; lazy in/out."""
+    if _use_matntt(x.shape[1]):
+        return matntt.ntt_lf16(x)
     return _run_lf(x, False)
 
 
 def intt_lf(x: torch.Tensor) -> torch.Tensor:
+    if _use_matntt(x.shape[1]):
+        return matntt.intt_lf16(x)
     d = domain(x.shape[1])
     return lf.mul(_run_lf(x, True), d.n_inv_mont(x.device))
 
@@ -183,11 +201,15 @@ def coset(n: int, shift: int) -> Coset:
 
 def coset_ntt_lf(x: torch.Tensor, shift: int) -> torch.Tensor:
     """Evaluate (L, n) coefficients on the coset shift*H; lazy in/out."""
+    if _use_matntt(x.shape[1]):
+        return matntt.coset_ntt_lf16(x, shift)
     c = coset(x.shape[1], shift)
     return _run_lf(lf.mul(x, c.shift_pows_lf(x.device)), False)
 
 
 def coset_intt_lf(x: torch.Tensor, shift: int) -> torch.Tensor:
+    if _use_matntt(x.shape[1]):
+        return matntt.coset_intt_lf16(x, shift)
     c = coset(x.shape[1], shift)
     d = domain(x.shape[1])
     y = lf.mul(_run_lf(x, True), d.n_inv_mont(x.device))

@@ -7,8 +7,17 @@ Synthesises keys, proves once to warm up (tables, allocator), then proves
 once more under `torch.profiler` and prints one JSON object: the proof's wall
 seconds with and without the profiler, the summed device time of all kernels,
 the device's busy share (summed kernel time over wall time: one stream, so
-kernels do not overlap), the number of kernel launches, and the kernels with
-the most device time. Needs a CUDA device.
+kernels do not overlap), the number of kernel launches, the kernels with
+the most device time, and the port's own kernels and the library matrix
+products (every kernel with "gemm" in its name: the int8 product of
+`torch._int_mm` and the float32 `torch.bmm` of MatNTT) by name.
+
+It then splits the NTT side off: every call of the four NTT entry points is
+logged during the proof and replayed alone, on random data of the same
+sizes, once untraced and once under the profiler; `ntt_side` holds the
+calls by size, their wall seconds, kernel launches and device time. With
+ALEO_TORCH_MATNTT_MIN set past every size the same script profiles the
+butterfly network. Needs a CUDA device.
 """
 
 import json
@@ -23,7 +32,10 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from aleo_tpu_torch import config
 from aleo_tpu_torch.curves import g1_affine as ga
+from aleo_tpu_torch.fields import fmat_kernels as fk
+from aleo_tpu_torch.ntt import ntt as dntt
 from aleo_tpu_torch.pcs.srs import Srs
 from aleo_tpu_torch.program.examples import load_example
 from aleo_tpu_torch.program.interpreter import Registry
@@ -40,6 +52,37 @@ function bump:
     add r0 1u64 into r1;
     output r1 as u64.private;
 """
+
+
+PATTERNS = ("fmat_reduce", "fmat_carry2d", "fmat_carry3d", "fq_prepare", "fq_mul",
+            "fq_fermat", "fq_apply", "gemm")
+NTT_ENTRIES = ("ntt_lf", "intt_lf", "coset_ntt_lf", "coset_intt_lf")
+
+
+def kernel_rows(p):
+    """(name, device microseconds, count) of every kernel of a profile."""
+    events = list(p.key_averages())
+    # kernel rows only: an operator's row repeats the time of its kernels
+    on_device = [ev for ev in events
+                 if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    rows = []
+    for ev in on_device or events:
+        own = getattr(ev, "self_device_time_total", None)
+        if own is None:
+            own = getattr(ev, "self_cuda_time_total", 0)
+        if own > 0:
+            rows.append((ev.key, own, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def by_pattern(rows):
+    out = {}
+    for pat in PATTERNS:
+        hit = [r for r in rows if pat in r[0].lower()]
+        out[pat] = {"device_ms": sum(r[1] for r in hit) / 1e3,
+                    "count": sum(r[2] for r in hit)}
+    return out
 
 
 def main(argv):
@@ -81,24 +124,68 @@ def main(argv):
     prof.enable(False)
     assert pipeline.verify_execution(keys, ep)
 
+    # log the NTT side's calls while the traced proof runs
+    ntt_calls = []
+    real = {name: getattr(dntt, name) for name in NTT_ENTRIES}
+
+    def logged(name):
+        def call(x, *shift):
+            ntt_calls.append((name, x.shape[1], shift))
+            return real[name](x, *shift)
+        return call
+
     ga.reset_launches()
-    t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        prove()
-    traced_s = time.time() - t0
-    rows = []
-    events = list(p.key_averages())
-    # kernel rows only: an operator's row repeats the time of its kernels
-    on_device = [ev for ev in events
-                 if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    for ev in on_device or events:
-        own = getattr(ev, "self_device_time_total", None)
-        if own is None:
-            own = getattr(ev, "self_cuda_time_total", 0)
-        if own > 0:
-            rows.append((ev.key, own, ev.count))
-    rows.sort(key=lambda r: -r[1])
+    fk.reset_launches()
+    for name in NTT_ENTRIES:
+        setattr(dntt, name, logged(name))
+    try:
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            prove()
+        traced_s = time.time() - t0
+    finally:
+        for name in NTT_ENTRIES:
+            setattr(dntt, name, real[name])
+    port_launches = {**ga.LAUNCHES, **fk.LAUNCHES}
+    rows = kernel_rows(p)
     device_s = sum(r[1] for r in rows) / 1e6
+
+    # the NTT side alone: the same calls on random data of the same sizes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    data = {}
+    for _, n, _ in ntt_calls:
+        if n not in data:
+            x = torch.randint(0, 1 << 16, (16, n), dtype=torch.int32, device="cuda",
+                              generator=gen)
+            x[15] %= 0x12AB                  # below the modulus
+            data[n] = x
+
+    def replay():
+        for name, n, shift in ntt_calls:
+            real[name](data[n], *shift)
+        torch.cuda.synchronize()
+
+    replay()
+    t0 = time.time()
+    replay()
+    ntt_s = time.time() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pn:
+        replay()
+    ntt_rows = kernel_rows(pn)
+    by_size = {}
+    for _, n, _ in ntt_calls:
+        by_size[str(n)] = by_size.get(str(n), 0) + 1
+    ntt_side = {
+        "matntt_min_n": config.MATNTT_MIN_N, "fused_reduce": config.FUSED_REDUCE,
+        "calls": len(ntt_calls), "calls_by_size": by_size,
+        "seconds": ntt_s, "kernel_launches": sum(r[2] for r in ntt_rows),
+        "device_kernel_seconds": sum(r[1] for r in ntt_rows) / 1e6,
+        "by_pattern": by_pattern(ntt_rows),
+        "top_kernels": [
+            {"name": k[:80], "device_ms": us / 1e3, "count": c} for k, us, c in ntt_rows[:8]
+        ],
+    }
     result = {
         "card": card, "circuit": which, "n": keys.index.n, "m": keys.index.m,
         "proof_seconds": plain_s, "proof_seconds_traced": traced_s,
@@ -106,7 +193,13 @@ def main(argv):
         "device_busy_share_traced": device_s / traced_s if traced_s else None,
         "device_busy_share_of_untraced_wall": device_s / plain_s if plain_s else None,
         "kernel_launches": sum(r[2] for r in rows),
-        "port_kernel_launches": dict(ga.LAUNCHES),
+        "port_kernel_launches": port_launches,
+        "by_pattern": by_pattern(rows),
+        "gemm_kernels": [
+            {"name": k[:100], "device_ms": us / 1e3, "count": c}
+            for k, us, c in rows if "gemm" in k.lower()
+        ],
+        "ntt_side": ntt_side,
         "stages": stages,
         "top_kernels": [
             {"name": k[:80], "device_ms": us / 1e3, "count": c} for k, us, c in rows[:20]

@@ -3,6 +3,10 @@ package are carried across with `keys_from_numpy`; the same constraint system
 and `rng=random.Random(7)` go through both provers; the proofs' bytes are
 equal and each verifies under the other package's verifier.
 
+The port proves with its MatNTT threshold lowered to 256, so every transform
+of the proof (2048 to 32768 lanes) runs as int8 products and the reduction's
+plain version, against the JAX package's butterfly network (its CPU path).
+
 Tolerance 0: a proof is field and group elements."""
 
 import pickle
@@ -21,6 +25,8 @@ from aleo_tpu.snark import pipeline as jpipe
 from aleo_tpu.snark import prover as jprover
 from aleo_tpu.snark import serialize as jser
 from aleo_tpu.snark import verifier as jver
+from aleo_tpu_torch import config as tconfig
+from aleo_tpu_torch.ntt import matntt as tmatntt
 from aleo_tpu_torch.snark import pipeline as tpipe
 from aleo_tpu_torch.snark import prover as tprover
 from aleo_tpu_torch.snark import serialize as tser
@@ -66,8 +72,15 @@ def carried(tmp_path_factory):
 def proofs(carried):
     jkeys, tkeys, syn = carried
     jproof = jprover.prove(jkeys.index, syn.cs, rng=random.Random(7))
-    tproof = tprover.prove(tkeys.index, syn.cs, rng=random.Random(7))
-    return jproof, tproof
+    sizes = []
+    real_run, real_min = tmatntt._run, tconfig.MATNTT_MIN_N
+    tmatntt._run = lambda x, *a, **k: sizes.append(x.shape[-1]) or real_run(x, *a, **k)
+    tconfig.MATNTT_MIN_N = 256
+    try:
+        tproof = tprover.prove(tkeys.index, syn.cs, rng=random.Random(7))
+    finally:
+        tmatntt._run, tconfig.MATNTT_MIN_N = real_run, real_min
+    return jproof, tproof, sizes
 
 
 def test_keys_carried_across_are_the_same_keys(carried):
@@ -89,7 +102,7 @@ def test_keys_carried_across_are_the_same_keys(carried):
 
 
 def test_proof_bytes_equal(carried, proofs):
-    jproof, tproof = proofs
+    jproof, tproof, _ = proofs
     ji = carried[0].index
     dims = (ji.n, ji.m, ji.ell)
     assert tser.proof_to_bytes(tproof, *dims) == jser.proof_to_bytes(jproof, *dims)
@@ -100,15 +113,22 @@ def test_proof_bytes_equal(carried, proofs):
     assert (tproof.w_beta, tproof.w_gamma) == (jproof.w_beta, jproof.w_gamma)
 
 
+def test_every_transform_of_the_proof_ran_as_matntt(carried, proofs):
+    ji = carried[0].index
+    sizes = proofs[2]
+    assert set(sizes) == {ji.n, 2 * ji.n, 4 * ji.n, ji.m, 4 * ji.m}, sorted(set(sizes))
+    assert sizes.count(4 * ji.m) == 18          # 5 coset NTTs + 1 inverse per matrix
+
+
 def test_port_proof_verifies_under_the_jax_verifier(carried, proofs):
     jkeys, _, syn = carried
-    _, tproof = proofs
+    _, tproof, _ = proofs
     assert jver.verify(jkeys.vk, syn.public_inputs, tproof)
 
 
 def test_jax_proof_verifies_under_the_port_verifier(carried, proofs):
     _, tkeys, syn = carried
-    jproof, _ = proofs
+    jproof, _, _ = proofs
     assert tver.verify(tkeys.vk, syn.public_inputs, jproof)
     bad = list(syn.public_inputs)
     bad[-1] = (bad[-1] + 1) % R
@@ -117,7 +137,7 @@ def test_jax_proof_verifies_under_the_port_verifier(carried, proofs):
 
 def test_port_proof_round_trips_through_bytes(carried, proofs):
     _, tkeys, syn = carried
-    _, tproof = proofs
+    _, tproof, _ = proofs
     ti = tkeys.index
     back, n, m, ell = tser.proof_from_bytes(tser.proof_to_bytes(tproof, ti.n, ti.m, ti.ell))
     assert (n, m, ell) == (ti.n, ti.m, ti.ell)
