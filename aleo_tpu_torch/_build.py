@@ -96,9 +96,16 @@ def library() -> ctypes.CDLL:
     lib.fmat_reduce_launch.argtypes = [P, P, I, P, P]
     lib.fmat_carry2d_launch.argtypes = [P, P, I, I, P]
     lib.fmat_carry3d_launch.argtypes = [P, P, I, I, I, P]
+    lib.g1_double_launch.argtypes = [P] * 6 + [I, P]
+    lib.g1_add_launch.argtypes = [P] * 9 + [I, P]
+    lib.g1_add_sel_launch.argtypes = [P] * 10 + [I, P]
+    lib.g1_add_sel_proj_launch.argtypes = [P] * 11 + [I, P]
+    lib.g1_normalize_launch.argtypes = [P] * 6 + [I, P]
     for fn in (lib.fq_mul_launch, lib.fq_prepare_launch, lib.fq_apply_launch,
                lib.fq_fermat_launch, lib.fmat_reduce_launch,
-               lib.fmat_carry2d_launch, lib.fmat_carry3d_launch):
+               lib.fmat_carry2d_launch, lib.fmat_carry3d_launch,
+               lib.g1_double_launch, lib.g1_add_launch, lib.g1_add_sel_launch,
+               lib.g1_add_sel_proj_launch, lib.g1_normalize_launch):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -9,9 +9,13 @@
   ALEO_TORCH_FUSED_REDUCE  1: MatNTT's Montgomery reduction is one kernel
                          (fmat_reduce); 0: the chain of carry kernels and
                          band products it fuses                    (1)
+  ALEO_TORCH_MSM_AFFINE  1: the variable-base MSM accumulates in affine
+                         form with shared batch inversions
+                         (curves/g1_affine.py); 0: the inversion-free
+                         projective pipeline (curves/g1_fused.py)     (1)
 
-The port has two NTT paths, chosen by size alone, and one MSM path
-(variable-base, batch-affine).
+The port has two NTT paths, chosen by size alone, and two variable-base MSM
+paths, chosen by ALEO_TORCH_MSM_AFFINE.
 """
 
 from __future__ import annotations
@@ -34,3 +38,8 @@ MATNTT_MIN_N = int(_env("ALEO_TORCH_MATNTT_MIN", str(1 << 14)))
 # Fuse each MatNTT reduction chain (carry -> N' product -> carry -> p product
 # + add -> carry) into one kernel launch. 0 runs the unfused chain.
 FUSED_REDUCE = _env("ALEO_TORCH_FUSED_REDUCE", "1") not in ("0", "false")
+
+# MSM accumulation mode, the twin of the JAX package's MSM_AFFINE_MODE with
+# the choice it makes on its accelerator as the default. "0" (or "false")
+# takes the projective pipeline. Read at call time (msm._use_affine).
+MSM_AFFINE_MODE = _env("ALEO_TORCH_MSM_AFFINE", "1")

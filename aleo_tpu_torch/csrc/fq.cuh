@@ -13,7 +13,9 @@
 // threads of a warp read neighbouring addresses for every limb.
 //
 // The constants below are checked against params.Q by the CPU test-suite
-// (tests/test_torch_g1_affine.py parses this header).
+// (tests/test_torch_g1_affine.py parses this header). They are `static`: every
+// source that includes this header (g1_affine.cu, g1_fused.cu) holds its own
+// copy, and the objects link into one library without clashing.
 
 #pragma once
 #include <stdint.h>
@@ -22,19 +24,19 @@
 #define FQ_LIMBS 24
 
 // p
-__constant__ uint32_t FQ_P[FQ_WORDS] = {
+static __constant__ uint32_t FQ_P[FQ_WORDS] = {
     0x00000001u, 0x8508c000u, 0x30000000u, 0x170b5d44u, 0xba094800u, 0x1ef3622fu,
     0x00f5138fu, 0x1a22d9f3u, 0x6ca1493bu, 0xc63b05c0u, 0x17c510eau, 0x01ae3a46u};
 // 2p
-__constant__ uint32_t FQ_P2[FQ_WORDS] = {
+static __constant__ uint32_t FQ_P2[FQ_WORDS] = {
     0x00000002u, 0x0a118000u, 0x60000001u, 0x2e16ba88u, 0x74129000u, 0x3de6c45fu,
     0x01ea271eu, 0x3445b3e6u, 0xd9429276u, 0x8c760b80u, 0x2f8a21d5u, 0x035c748cu};
 // 2^384 mod p (Montgomery one)
-__constant__ uint32_t FQ_ONE[FQ_WORDS] = {
+static __constant__ uint32_t FQ_ONE[FQ_WORDS] = {
     0xffffff68u, 0x02cdffffu, 0x7fffffb1u, 0x51409f83u, 0x8a7d3ff2u, 0x9f7db3a9u,
     0x6e7c6305u, 0x7b4e97b7u, 0x803c84e8u, 0x4cf495bfu, 0xe2fdf49au, 0x008d6661u};
 // p - 2 (the Fermat inversion exponent), 377 bits
-__constant__ uint32_t FQ_EXP[FQ_WORDS] = {
+static __constant__ uint32_t FQ_EXP[FQ_WORDS] = {
     0xffffffffu, 0x8508bfffu, 0x30000000u, 0x170b5d44u, 0xba094800u, 0x1ef3622fu,
     0x00f5138fu, 0x1a22d9f3u, 0x6ca1493bu, 0xc63b05c0u, 0x17c510eau, 0x01ae3a46u};
 #define FQ_EXP_BITS 377

@@ -1,22 +1,31 @@
-"""Pippenger multi-scalar multiplication, batch-affine variable-base path.
+"""Pippenger multi-scalar multiplication, variable-base, two pipelines.
 
-Counterpart of the JAX package's `msm/msm.py` on its default (batch-affine)
-pipeline: every KZG commitment of the prover is one MSM over the SRS. The
-formulation makes *buckets* the vector lanes and streams points into them:
+Counterpart of the JAX package's `msm/msm.py`: every KZG commitment of the
+prover is one MSM over the SRS. The formulation makes *buckets* the vector
+lanes and streams points into them:
 
   1. signed-digit window decomposition (digits in [-2^(c-1), 2^(c-1)];
      negating a point is free, which halves the bucket count),
   2. ONE global sort of all (window, |digit|) keys across every window,
   3. bucket start/count recovery via searchsorted over the sorted keys,
   4. round-robin accumulation: round j gathers the j-th point of every
-     (window, bucket) segment and performs one batched affine add over all
-     bucket lanes (`curves.g1_affine.madd`: the four CUDA kernels). The
-     round count is the largest segment, a device value read back once per
-     MSM; the heaviest segments are split over spare lanes first,
+     (window, bucket) segment and performs one batched add over all bucket
+     lanes. The round count is the largest segment, a device value read back
+     once per MSM,
   5. log-depth weighted bucket reduction (tree sums + suffix scans, all as
-     full-width batched affine adds),
-  6. window combine (Horner) on host bigints: the prover's transcript lives
-     on the host anyway.
+     full-width batched adds),
+  6. window combine (Horner): on host bigints for the prover, whose
+     transcript lives on the host anyway (`msm_fast_host`), or on the device
+     (`msm`).
+
+Steps 4 and 5 exist twice, chosen by `config.MSM_AFFINE_MODE`:
+
+  * batch-affine (the default): affine accumulators and one shared batch
+    inversion per add (`curves.g1_affine.madd`, four CUDA kernels); the
+    heaviest segments are split over spare lanes first. Functions `*_af`.
+  * projective ("0"): complete projective adds, no inversion
+    (`curves.g1_fused`: `add_sel_lf` in the rounds, `add_sel_proj_lf` in the
+    top window's merge, `add_lf` and `double_lf` in the reduction).
 
 The sort, searchsorted, argsort and gathers are library calls here as they
 are in the reference (outside any kernel).
@@ -30,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from .. import params
+from .. import config, params
 from ..curves import g1, g1_affine as ga, g1_fused as gf
 from ..curves.g1 import G1Points
 from ..curves.g1_affine import G1AF
@@ -364,6 +373,121 @@ def _weighted_bucket_sum_af(p: G1AF, w: int, b: int) -> G1AF:
     return ga.add_pairs(X, Y)
 
 
+# ---------------------------------------------------------------------------
+# projective pipeline: complete adds on G1LF lanes, no inversion
+# ---------------------------------------------------------------------------
+
+
+def _shift_buckets(p: G1LF, w: int, b: int, s: int) -> G1LF:
+    """Shift the bucket axis of a (L, w * b) lane view left by s; the
+    identity (0, 1, 0) enters at the end of each window."""
+    L = p.x.shape[0]
+    ident = gf.identity_lf(1, device=p.x.device)
+
+    def sh(a, fill):
+        tail = fill.reshape(L, 1, 1).expand(L, w, s)
+        return torch.cat([a.reshape(L, w, b)[:, :, s:], tail], dim=2).reshape(L, -1)
+
+    return G1LF(sh(p.x, ident.x), sh(p.y, ident.y), sh(p.z, ident.z))
+
+
+def _scan_add_buckets(p: G1LF, w: int, b: int) -> G1LF:
+    """Hillis-Steele suffix scan along the bucket axis:
+    out[b'] = sum_{k >= b'} p[k] within each window."""
+    s = 1
+    while s < b:
+        p = gf.add_lf(p, _shift_buckets(p, w, b, s))
+        s *= 2
+    return p
+
+
+def _tree_sum_axis(p: G1LF, L: int, pre: int, b: int, post: int) -> G1LF:
+    """Halving tree reduction over the middle axis of a (L, pre, b, post)
+    lane view. Work ~2x one full-width add."""
+    while b > 1:
+        half = b // 2
+        lo = G1LF(*(a.reshape(L, pre, b, post)[:, :, :half].reshape(L, -1) for a in p))
+        hi = G1LF(*(a.reshape(L, pre, b, post)[:, :, half:].reshape(L, -1) for a in p))
+        p, b = gf.add_lf(lo, hi), half
+    return p
+
+
+def _first_bucket(p: G1LF, w: int, b: int) -> G1LF:
+    L = p.x.shape[0]
+    return G1LF(*(a.reshape(L, w, b)[:, :, 0] for a in p))
+
+
+def _weighted_bucket_sum(p: G1LF, w: int, b: int) -> G1LF:
+    """sum_i (i+1) * S_i per window -> (L, w) window totals; the chunked
+    formulation of `_weighted_bucket_sum_af` on projective lanes."""
+    L = p.x.shape[0]
+    if b <= 64:
+        q = _scan_add_buckets(p, w, b)
+        q = _scan_add_buckets(q, w, b)
+        return _first_bucket(q, w, b)
+    g = (b.bit_length() - 1) // 2
+    G = 1 << g
+    H = b // G
+    A = _tree_sum_axis(p, L, w * H, G, 1)               # (L, w*H)
+    B = _tree_sum_axis(p, L, w, H, G)                   # (L, w*G)
+    # X = sum_hi hi * A_hi == sum_k (k+1) * A[k+1]  (shift A left by one)
+    X = _scan_add_buckets(_shift_buckets(A, w, H, 1), w, H)
+    X = _scan_add_buckets(X, w, H)
+    X = _first_bucket(X, w, H)                          # (L, w)
+    Y = _scan_add_buckets(B, w, G)
+    Y = _scan_add_buckets(Y, w, G)
+    Y = _first_bucket(Y, w, G)                          # (L, w)
+    for _ in range(g):                                  # G * X
+        X = gf.double_lf(X)
+    return gf.add_lf(X, Y)
+
+
+def _accumulate_buckets(
+    sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
+    merge_masks, src_np, keep_np, m_exp: int, half: int,
+) -> G1LF:
+    """Round-robin mixed-add accumulation + top-window merge/reshuffle. No
+    tail balancing on this path. `half` is the lane count of one window."""
+    L = table.shape[1] // 2
+    dev = table.device
+    lanes = lane_start.shape[0]
+    # the one device->host read of an MSM: how many rounds its data needs
+    max_count = int(lane_count.max().item())
+    acc = gf.identity_lf(lanes, device=dev)
+    for j in range(max_count):
+        pos = torch.clamp(lane_start + j * lane_stride, max=m_exp - 1)
+        valid = (j < lane_count).to(STORE)
+        coords = table[sorted_pt[pos]].T.contiguous()       # (2L, lanes)
+        acc = gf.add_sel_lf(acc, coords[:L], coords[L:], sorted_sign[pos], valid)
+
+    # merge the top window's sub-accumulators: log2(s) masked adds over that
+    # window's lanes alone (the last `half` lanes of the grid; no other lane
+    # has a partner)
+    if len(merge_masks):
+        top = G1LF(*(a[:, -half:] for a in acc))
+        iota = torch.arange(half, device=dev)
+        sign = torch.zeros((1, half), dtype=STORE, device=dev)
+        shift = 1
+        for mask_np in merge_masks:
+            idx = torch.clamp(iota + shift, max=half - 1)
+            partner = G1LF(*(a[:, idx] for a in top))
+            mask = torch.from_numpy(mask_np[-half:]).to(dev)
+            top = gf.add_sel_proj_lf(top, partner, sign, mask)
+            shift *= 2
+        ident = gf.identity_lf(1, device=dev)
+        src = torch.from_numpy(src_np).to(dev)
+        keep = torch.from_numpy(keep_np).to(dev)[None, :] != 0
+        acc = G1LF(*(
+            torch.where(keep, torch.cat([a[:, :-half], t], dim=1)[:, src], i)
+            for a, t, i in zip(acc, top, ident)
+        ))
+    return acc
+
+
+def _use_affine() -> bool:
+    return config.MSM_AFFINE_MODE not in ("0", "false")
+
+
 def msm_windows(scalars_raw: torch.Tensor, table: torch.Tensor, c: int) -> G1LF:
     """Per-window MSM totals: G1LF with batch axis = window index (W lanes).
 
@@ -391,11 +515,39 @@ def msm_windows(scalars_raw: torch.Tensor, table: torch.Tensor, c: int) -> G1LF:
     lane_start, lane_stride, lane_count, merge_masks, src_np, keep_np, _s = (
         _bucket_grid(sorted_keys, c, w_total)
     )
-    buckets = _accumulate_buckets_af(
-        sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
-        merge_masks, src_np, keep_np, m_exp, half,
-    )
-    return ga.to_lf(_weighted_bucket_sum_af(buckets, w_total, half))
+    grid = (sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
+            merge_masks, src_np, keep_np, m_exp, half)
+    if _use_affine():
+        buckets = _accumulate_buckets_af(*grid)
+        return ga.to_lf(_weighted_bucket_sum_af(buckets, w_total, half))
+    return _weighted_bucket_sum(_accumulate_buckets(*grid), w_total, half)
+
+
+def _combine_device(windows: G1LF, c: int) -> G1Points:
+    """Horner window combine on the device (c doublings + 1 add per
+    window)."""
+    wp = gf.to_points(windows)  # (W, L) limbs-last
+    acc = g1.identity((), device=wp.x.device)
+    for w in reversed(range(wp.x.shape[0])):
+        for _ in range(c):
+            acc = g1.double(acc)
+        acc = g1.add(acc, G1Points(wp.x[w], wp.y[w], wp.z[w]))
+    return acc
+
+
+def msm(scalars_raw: torch.Tensor, points: G1Points, c: int | None = None,
+        device=None) -> G1Points:
+    """MSM sum_i scalars[i] * points[i], fully on the device.
+
+    scalars_raw: (N, FR_LIMBS) int32, standard (non-Montgomery) form.
+    points: affine-encoded batch (z == 1, or z == 0 for identity fillers).
+    Returns a single projective point (batch shape ()), canonical limbs.
+    """
+    device = limbs.resolve_device(device)
+    if c is None:
+        c = auto_c(scalars_raw.shape[0])
+    table = make_table(G1Points(*(a.to(device) for a in points)))
+    return _combine_device(msm_windows(scalars_raw.to(device), table, c=c), c)
 
 
 def combine_windows_host(windows: G1LF, c: int):

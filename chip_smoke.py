@@ -20,9 +20,18 @@ Phases, each printing one JSON line with its seconds:
             on the card and an int64 product on the host. `ms` is a kernel's
             device time (replays of a captured CUDA graph over buffers larger
             than the L2 cache); `plain_ms`, `madd_ms` and `batch_inv_lf_ms`
-            are whole calls, host side included
-  msm       msm_host at 2^12 points against the host Pippenger oracle; NTT
-            round trip and one coset NTT at 2^17 against host evaluation
+            are whole calls, host side included. g1_double, g1_add,
+            g1_add_sel, g1_add_sel_proj and g1_normalize each against its
+            plain version (exact equality after normalize; masked lanes bit
+            for bit) at the 45056 lanes of a 32768-point projective MSM and
+            at the ragged widths 1, 22, 129 and 1001, with P + P, P + (-P),
+            identities (z as 0 and as p), the (0, 0) sentinel, invalid lanes
+            and lazy representatives planted among random lanes; at 22 lanes
+            also real curve points against the host group law
+  msm       msm_host at 2^12 points in both MSM modes (batch-affine and
+            projective) and the device entry msm(scalars, points, c=4)
+            against the host Pippenger oracle; NTT round trip and one coset
+            NTT at 2^17 against host evaluation
   matntt    ntt_lf, intt_lf, coset_ntt_lf, coset_intt_lf at 2^14, 2^15 and
             2^17 through MatNTT and through the butterfly network: equal
             after normalize, and equal to host evaluation at a few indices;
@@ -33,7 +42,10 @@ Phases, each printing one JSON line with its seconds:
   transfer  the main path at full size: synthesize_keys, prove_execution and
             verify_execution of token.aleo/transfer (examples/simple_token),
             with the kernels' launch counts set to 0 just before and read
-            just after
+            just after; then the same proof again through the projective MSM
+            (MSM_AFFINE_MODE "0"), counts set to 0 before and read after: it
+            must verify, give the same bytes, and launch the g1 kernels and
+            none of the batch-affine ones
 
 It fails (non-zero exit, no result line) without CUDA, if the build fails,
 or if any phase fails. The last line of its output is
@@ -60,7 +72,9 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from aleo_tpu_torch import _build, config, params
+from aleo_tpu_torch.curves import g1 as g1mod
 from aleo_tpu_torch.curves import g1_affine as ga
+from aleo_tpu_torch.curves import g1_fused as gf
 from aleo_tpu_torch.fields import fmat
 from aleo_tpu_torch.fields import fmat_kernels as fk
 from aleo_tpu_torch.fields import fr_lf as lf
@@ -78,6 +92,7 @@ from aleo_tpu_torch.reference import polynomial as rpoly
 from aleo_tpu_torch.reference.curve import G1
 from aleo_tpu_torch.reference.msm import msm_pippenger_jac
 from aleo_tpu_torch.snark import pipeline
+from aleo_tpu_torch.snark.serialize import proof_to_bytes
 from aleo_tpu_torch.snark.verifier import verify
 from aleo_tpu_torch.utils import profiling as prof
 
@@ -91,8 +106,10 @@ INT32_MADS_PER_S = 16.75e12
 MADS_PER_PRODUCT = 2 * 2 * 12 * 12      # two 12x12-word passes, 2 instructions each
 
 # lane grid of a 32768-point MSM at auto_c = 12: 22 windows x 2048 buckets
-# plus one eighth of spare lanes
+# plus one eighth of spare lanes (the projective pipeline has no spares)
 M_GRID = 22 * 2048 * 9 // 8             # 50688
+M_PROJ = 22 * 2048                      # 45056
+M_WINDOWS = 22                          # the end of the bucket reduction
 M_FERMAT = ga.FERMAT_W                  # 128
 
 # one MatNTT stage of a 2^17 transform: 76 raw columns of 131072 lanes
@@ -101,6 +118,7 @@ REDUCE_MADS = 38 * 39 // 2 + 38 * 38    # the N' band (triangular) and the p ban
 PHASES = {"kernels", "msm", "matntt", "micro", "transfer"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
+_G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
 KERNELS = {         # name -> (source, the TPU kernel it replaces)
     "fq_prepare": (_G1, "aleo_tpu/curves/g1_affine.py:240"),
     "fq_mul": (_G1, "aleo_tpu/curves/g1_affine.py:300"),
@@ -109,7 +127,14 @@ KERNELS = {         # name -> (source, the TPU kernel it replaces)
     "fmat_reduce": (_FMAT, "aleo_tpu/fields/fmat_pallas.py:114"),
     "fmat_carry2d": (_FMAT, "aleo_tpu/fields/fmat_pallas.py:53"),
     "fmat_carry3d": (_FMAT, "aleo_tpu/fields/fmat_pallas.py:69"),
+    "g1_double": (_G1F, "aleo_tpu/curves/g1_fused.py:350"),
+    "g1_add": (_G1F, "aleo_tpu/curves/g1_fused.py:210"),
+    "g1_add_sel": (_G1F, "aleo_tpu/curves/g1_fused.py:243"),
+    "g1_add_sel_proj": (_G1F, "aleo_tpu/curves/g1_fused.py:302"),
+    "g1_normalize": (_G1F, "aleo_tpu/curves/g1_fused.py:376"),
 }
+AFFINE_KERNELS = ("fq_prepare", "fq_mul", "fq_fermat", "fq_apply")
+PROJECTIVE_KERNELS = ("g1_double", "g1_add", "g1_add_sel", "g1_add_sel_proj")
 
 MICRO = """
 program micro.aleo;
@@ -173,10 +198,11 @@ def kernel_ms(launch, sets, reps=10):
 def reset_launches():
     ga.reset_launches()
     fk.reset_launches()
+    gf.reset_launches()
 
 
 def all_launches():
-    return {**ga.LAUNCHES, **fk.LAUNCHES}
+    return {**ga.LAUNCHES, **fk.LAUNCHES, **gf.LAUNCHES}
 
 
 def copies(args, n):
@@ -337,6 +363,7 @@ def phase_kernels():
     torch.cuda.synchronize()
 
     products = _fmat_kernels(res)
+    _g1_kernels(res)
 
     for name, r in res.items():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -348,6 +375,158 @@ def phase_kernels():
          "batch_inv_lf_ms": binv_ms, "library_products": products,
          "seconds": round(time.time() - t0, 3)})
     return res
+
+
+G1_KINDS = ("P+P", "P+(-P) by value", "P+(-P) by sign", "identity+P", "P+identity",
+            "identity+identity, z=0", "identity+identity, z=p", "sentinel addend",
+            "invalid lane", "P+P, lazy representatives")
+
+
+def _g1_inputs(rng, m):
+    """Random lazy (<= 2p) accumulator and addend lanes with the lanes of
+    G1_KINDS planted among them, each kind in turn. -> (x1, y1, z1, x2, y2,
+    z2, sign, valid) tensors and the number of lanes of each kind."""
+    one = (1 << 384) % Q
+    c = {k: [rng.randrange(2 * Q) for _ in range(m)]
+         for k in ("x1", "y1", "z1", "x2", "z2")}
+    c["y2"] = [rng.randrange(1, 2 * Q) for _ in range(m)]
+    sign = [rng.randrange(2) for _ in range(m)]
+    valid = [1] * m
+    counts = [0] * len(G1_KINDS)
+    period = max(1, min(97, m // len(G1_KINDS)))
+    for k in range(0, m, period):
+        kind = (k // period) % len(G1_KINDS)
+        counts[kind] += 1
+        a, b = c["x1"][k] % Q, c["y1"][k] % Q or 1
+        c["x1"][k], c["y1"][k], c["z1"][k] = a, b, one
+        c["x2"][k], c["y2"][k], c["z2"][k], sign[k] = a, b, one, 0
+        if kind == 1:
+            c["y2"][k] = Q - b
+        elif kind == 2:
+            sign[k] = 1
+        elif kind == 3:
+            c["x1"][k], c["y1"][k], c["z1"][k] = 0, one, 0
+        elif kind == 4:     # projective: z2 = 0; affine: the sentinel
+            c["x2"][k], c["y2"][k], c["z2"][k] = 0, 0, 0
+        elif kind == 5:
+            c["x1"][k], c["y1"][k], c["z1"][k] = 0, one, 0
+            c["x2"][k], c["y2"][k], c["z2"][k] = 0, one, 0
+        elif kind == 6:
+            c["x1"][k], c["y1"][k], c["z1"][k] = Q, one + Q, Q
+            c["x2"][k], c["y2"][k], c["z2"][k] = Q, one, Q
+        elif kind == 7:
+            c["x2"][k], c["y2"][k], sign[k] = 0, 0, 1
+        elif kind == 8:     # a masked lane holding the largest lazy value
+            valid[k], c["y1"][k] = 0, 2 * Q
+        elif kind == 9:
+            c["x2"][k], c["y2"][k], c["z1"][k] = a + Q, b + Q, one + Q
+    flag = lambda v: torch.tensor([v], dtype=torch.int32, device=DEV)
+    t = {k: fq_tensor(v) for k, v in c.items()}
+    return (t["x1"], t["y1"], t["z1"], t["x2"], t["y2"], t["z2"],
+            flag(sign), flag(valid)), counts
+
+
+def same3(got, want):
+    return max(same(g, w) for g, w in zip(got, want))
+
+
+def _g1_check(args):
+    """Each g1 kernel against its plain version on one set of inputs ->
+    {name: max_abs_err}. Masked lanes must hold the accumulator bit for bit."""
+    x1, y1, z1, x2, y2, z2, sign, valid = args
+    acc, addend = gf.G1LF(x1, y1, z1), gf.G1LF(x2, y2, z2)
+    err = {
+        "g1_double": same3(gf.double_lf(acc), gf._double_plain(x1, y1, z1)),
+        "g1_add": same3(gf.add_lf(acc, addend), gf._add_plain(x1, y1, z1, x2, y2, z2)),
+    }
+    got = gf.add_sel_lf(acc, x2, y2, sign, valid)
+    err["g1_add_sel"] = same3(got, gf._add_sel_plain(x1, y1, z1, x2, y2, sign, valid))
+    masked = ((valid == 0) | (y2.amax(dim=0, keepdim=True) == 0))[0]
+    for g, a in zip(got, acc):
+        assert torch.equal(g[:, masked], a[:, masked]), "g1_add_sel changed a masked lane"
+    got = gf.add_sel_proj_lf(acc, addend, sign, valid)
+    err["g1_add_sel_proj"] = same3(
+        got, gf._add_sel_proj_plain(x1, y1, z1, x2, y2, z2, sign, valid))
+    masked = (valid == 0)[0]
+    for g, a in zip(got, acc):
+        assert torch.equal(g[:, masked], a[:, masked]), "g1_add_sel_proj changed a masked lane"
+    got, want = gf.normalize_lf(acc), gf._normalize_plain(x1, y1, z1)
+    err["g1_normalize"] = max(int_err(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    return err
+
+
+def _g1_on_the_curve(rng):
+    """The five functions on real curve points at 22 lanes, decoded and held
+    against the host group law."""
+    m = M_WINDOWS
+    g = G1.generator()
+    ps = [G1.mul(rng.randrange(1, R), g) for _ in range(m)]
+    qs = [G1.mul(rng.randrange(1, R), g) for _ in range(m)]
+    qs[0], qs[1], qs[2], ps[3] = ps[0], G1.neg(ps[1]), None, None
+    ps[4], qs[4] = None, None
+    sign = [i % 2 for i in range(m)]
+    valid = [0 if i % 5 == 4 and i > 4 else 1 for i in range(m)]
+    P, Qp = gf.encode_lf(ps, device=DEV), gf.encode_lf(qs, device=DEV)
+    assert gf.decode_lf(gf.double_lf(P)) == [G1.double(p) for p in ps]
+    assert gf.decode_lf(gf.add_lf(P, Qp)) == [G1.add(p, q) for p, q in zip(ps, qs)]
+    want = [G1.add(p, G1.neg(q) if s else q) if v else p
+            for p, q, s, v in zip(ps, qs, sign, valid)]
+    flag = lambda v: torch.tensor(v, dtype=torch.int32, device=DEV)
+    assert gf.decode_lf(gf.add_sel_proj_lf(P, Qp, flag(sign), flag(valid))) == want
+    table = msm_mod.make_table(gf.to_points(Qp)).T.contiguous()     # (0, 0) for None
+    assert gf.decode_lf(gf.add_sel_lf(P, table[:L], table[L:], flag(sign), flag(valid))) == want
+
+
+def _g1_kernels(res):
+    """g1_double, g1_add, g1_add_sel, g1_add_sel_proj, g1_normalize against
+    their plain versions, and their times."""
+    rng = random.Random(SEED + 11)
+    m = M_PROJ
+    args, counts = _g1_inputs(rng, m)
+    assert min(counts) > 0, f"a planted kind has no lane: {counts}"
+    err = _g1_check(args)
+    for w in (1, M_WINDOWS, 129, 1001):
+        small, small_counts = _g1_inputs(rng, w)
+        assert w < len(G1_KINDS) or min(small_counts) > 0, (w, small_counts)
+        for name, e in _g1_check(small).items():
+            err[name] = max(err[name], e)
+    _g1_on_the_curve(rng)
+    x1, y1, z1, x2, y2, z2, sign, valid = args
+    narrow = tuple(t[:, :M_WINDOWS].contiguous() for t in args)
+    kept = int(((valid != 0) & (y2.amax(dim=0, keepdim=True) != 0)).sum().item())
+    n_valid = int((valid != 0).sum().item())
+    coord = 4 * L * m
+    P3 = lambda a: gf.G1LF(*a[:3])
+    Q3 = lambda a: gf.G1LF(*a[3:6])
+    specs = {       # name -> (launch, plain, argument tuple, sets, bytes, mads)
+        "g1_double": (lambda a: gf.double_lf(P3(a)), lambda: gf._double_plain(x1, y1, z1),
+                      (x1, y1, z1), 4, 6 * coord, 8 * MADS_PER_PRODUCT * m),
+        "g1_add": (lambda a: gf.add_lf(P3(a), Q3(a)),
+                   lambda: gf._add_plain(x1, y1, z1, x2, y2, z2),
+                   (x1, y1, z1, x2, y2, z2), 3, 9 * coord, 12 * MADS_PER_PRODUCT * m),
+        "g1_add_sel": (lambda a: gf.add_sel_lf(P3(a), a[3], a[4], a[5], a[6]),
+                       lambda: gf._add_sel_plain(x1, y1, z1, x2, y2, sign, valid),
+                       (x1, y1, z1, x2, y2, sign, valid), 3, 8 * coord + 8 * m,
+                       11 * MADS_PER_PRODUCT * kept),
+        "g1_add_sel_proj": (lambda a: gf.add_sel_proj_lf(P3(a), Q3(a), a[6], a[7]),
+                            lambda: gf._add_sel_proj_plain(*args),
+                            args, 3, 9 * coord + 8 * m, 12 * MADS_PER_PRODUCT * n_valid),
+        "g1_normalize": (lambda a: gf.normalize_lf(P3(a)),
+                         lambda: gf._normalize_plain(x1, y1, z1),
+                         (x1, y1, z1), 4, 6 * coord, 0),
+    }
+    for name, (launch, plain, a, sets, nbytes, mads) in specs.items():
+        res[name] = {
+            "max_abs_err": err[name], "lanes": m,
+            "ms": kernel_ms(launch, copies(a, sets)),
+            "plain_ms": cuda_ms(plain, 3), "bytes": nbytes, "mads": mads,
+        }
+    # the narrow end of the bucket reduction: one lane for each window
+    res["g1_double"]["ms_22_lanes"] = kernel_ms(specs["g1_double"][0], copies(narrow[:3], 4))
+    res["g1_add"]["ms_22_lanes"] = kernel_ms(specs["g1_add"][0], copies(narrow[:6], 4))
+    res["g1_add_sel"].update(kept_lanes=kept, planted=dict(zip(G1_KINDS, counts)))
+    res["g1_add_sel_proj"]["valid_lanes"] = n_valid
 
 
 def random_fr(n, seed):
@@ -480,13 +659,47 @@ def phase_msm():
     rng.shuffle(pts)
     scalars = [rng.randrange(R) for _ in range(n)]
     scalars[0], scalars[1], scalars[2], pts[3] = 0, R - 1, 1, None
-    reset_launches()
-    t1 = time.time()
-    got = msm_mod.msm_host(scalars, pts, device=DEV)
-    torch.cuda.synchronize()
-    msm_s = time.time() - t1
-    assert got == msm_pippenger_jac(scalars, pts), "msm_host disagrees with the oracle"
-    launches = dict(ga.LAUNCHES)
+    want = msm_pippenger_jac(scalars, pts)
+    raw = limbs.to_tensor(limbs.ints_to_limbs(scalars, params.FR_LIMBS), DEV)
+    enc = g1mod.encode_points(pts, device=DEV)
+    modes = {}
+    assert config.MSM_AFFINE_MODE == "1"
+    try:
+        for mode, name in (("1", "affine"), ("0", "projective")):
+            config.MSM_AFFINE_MODE = mode
+            reset_launches()
+            got, host_s = _timed(lambda: msm_mod.msm_host(scalars, pts, device=DEV))
+            assert got == want, f"msm_host ({name}) disagrees with the oracle"
+            host_launches = all_launches()
+            # the device entry point, window combine on the card
+            reset_launches()
+            acc, entry_s = _timed(lambda: msm_mod.msm(raw, enc, c=4))
+            assert acc.x.shape == (L,) and acc.x.is_cuda
+            assert g1mod.decode_points(acc) == [want], f"msm ({name}) disagrees with the oracle"
+            modes[name] = {"msm_host_seconds": host_s, "msm_host_launches": host_launches,
+                           "msm_c4_seconds": entry_s, "msm_c4_launches": all_launches()}
+    finally:
+        config.MSM_AFFINE_MODE = "1"
+    for k in AFFINE_KERNELS:
+        assert modes["affine"]["msm_host_launches"][k] > 0
+        assert modes["projective"]["msm_host_launches"][k] == 0
+        assert modes["projective"]["msm_c4_launches"][k] == 0
+    for k in ("g1_add", "g1_add_sel", "g1_normalize"):
+        assert modes["projective"]["msm_host_launches"][k] > 0, k
+    for k in ("g1_double", "g1_add", "g1_add_sel", "g1_normalize"):
+        assert modes["projective"]["msm_c4_launches"][k] > 0, k
+    # the limbs-last group law on the card: scale, neg, select, to_affine
+    k = rng.randrange(1, 1 << 32)
+    two = g1mod.G1Points(*(a[:2] for a in enc))
+    kp = g1mod.scale(g1mod.scalar_bits(k, 32), two)
+    assert g1mod.decode_points(kp) == [G1.mul(k, p) for p in pts[:2]], "g1.scale"
+    aff = g1mod.to_affine(g1mod.select(torch.tensor([True, False], device=DEV),
+                                       kp, g1mod.neg(kp)))
+    assert g1mod.decode_points(aff) == [G1.mul(k, pts[0]), G1.neg(G1.mul(k, pts[1]))]
+    one = g1mod.identity((2,), device=DEV).y
+    assert torch.equal(aff.z, one) and not g1mod.is_identity(aff).any(), "g1.to_affine"
+    msm_s = modes["affine"]["msm_host_seconds"]
+    launches = {k: modes["affine"]["msm_host_launches"][k] for k in AFFINE_KERNELS}
 
     n = 1 << 17
     coeffs = [rng.randrange(R) for _ in range(n)]
@@ -510,7 +723,7 @@ def phase_msm():
         assert ev_h[k] == rpoly.evaluate(coeffs, x), f"NTT wrong at {i}"
         assert cev_h[k] == rpoly.evaluate(coeffs, shift * x % R), f"coset NTT wrong at {i}"
     say({"phase": "msm", "msm_points": 1 << 12, "msm_seconds": msm_s,
-         "msm_launches": launches, "ntt_lanes": n, "ntt_seconds": ntt_s,
+         "msm_launches": launches, "msm_modes": modes, "ntt_lanes": n, "ntt_seconds": ntt_s,
          "coset_ntt_seconds": coset_s, "seconds": round(time.time() - t0, 3)})
 
 
@@ -672,20 +885,57 @@ def phase_transfer(srs):
     bad[2] = (bad[2] + 1) % R
     assert not verify(keys.vk, bad, ep.proof), "tampered public input was accepted"
     assert (keys.index.n, keys.index.m) == (8192, 32768), (keys.index.n, keys.index.m)
-    # the proof goes through the four MSM kernels and, at the default MatNTT
+    # the proof goes through the four MSM kernels, through g1_normalize where
+    # window totals are decoded on the card and, at the default MatNTT
     # threshold, through fmat_reduce; the carry kernels belong to the unfused
     # configuration (phase matntt drives it) and stay at 0 here
-    for k in ("fq_prepare", "fq_mul", "fq_fermat", "fq_apply", "fmat_reduce"):
+    for k in AFFINE_KERNELS + ("g1_normalize", "fmat_reduce"):
         assert proof_launches[k] > 0, f"{k} was never launched during the proof"
+
+    # the same proof through the projective MSM: same keys, inputs and
+    # randomness, so the same commitments and the same bytes
+    assert config.MSM_AFFINE_MODE == "1"
+    config.MSM_AFFINE_MODE = "0"
+    try:
+        reset_launches()
+        prof.reset()
+        prof.enable()
+        t1 = time.time()
+        ep_proj = pipeline.prove_execution(keys, reg, inputs, caller=sender,
+                                           rng_nonce=lambda: 11, rng=random.Random(SEED))
+        torch.cuda.synchronize()
+        proj_prove_s = time.time() - t1
+        proj_launches = all_launches()    # the projective path's counts
+        proj_stages = prof.report()
+        prof.enable(False)
+    finally:
+        config.MSM_AFFINE_MODE = "1"
+    assert pipeline.verify_execution(keys, ep_proj, debug=True), \
+        "projective transfer proof does not verify"
+    dims = (keys.index.n, keys.index.m, keys.index.ell)
+    assert proof_to_bytes(ep_proj.proof, *dims) == proof_to_bytes(ep.proof, *dims), \
+        "the projective proof's bytes differ from the affine proof's"
+    for k in PROJECTIVE_KERNELS + ("g1_normalize", "fmat_reduce"):
+        assert proj_launches[k] > 0, f"{k} was never launched during the projective proof"
+    for k in AFFINE_KERNELS:
+        assert proj_launches[k] == 0, f"{k} was launched during the projective proof"
+    for k in PROJECTIVE_KERNELS:
+        assert proof_launches[k] == 0, f"{k} was launched during the affine proof"
     say({"phase": "transfer", "n": keys.index.n, "m": keys.index.m, "ell": keys.index.ell,
          "constraints": keys.constraint_counts["total"],
          "keys_seconds": keys_s,
          "synthesis_seconds": stages["pipeline/synthesize"]["seconds"],
          "prove_seconds": prove_s, "verify_seconds": verify_s,
          "launches_keys": keys_launches, "launches_proof": proof_launches,
-         "stages": stages, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+         "stages": stages,
+         "projective": {"prove_seconds": proj_prove_s, "launches_proof": proj_launches,
+                        "stages": proj_stages, "bytes_equal": True},
+         "peak_device_bytes": torch.cuda.max_memory_allocated(),
          "seconds": round(time.time() - t0, 3)})
-    return launches
+    # each kernel's count on the path that runs it: the batch-affine main path
+    # (keys, proof, verification), and the projective proof for the kernels
+    # of the projective pipeline
+    return {**launches, **{k: proj_launches[k] for k in PROJECTIVE_KERNELS}}
 
 
 def main(argv):

@@ -17,7 +17,9 @@ logged during the proof and replayed alone, on random data of the same
 sizes, once untraced and once under the profiler; `ntt_side` holds the
 calls by size, their wall seconds, kernel launches and device time. With
 ALEO_TORCH_MATNTT_MIN set past every size the same script profiles the
-butterfly network. Needs a CUDA device.
+butterfly network, and with ALEO_TORCH_MSM_AFFINE=0 the proof whose MSMs take
+the projective pipeline (`msm_affine_mode` in the result says which ran).
+Needs a CUDA device.
 """
 
 import json
@@ -34,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from aleo_tpu_torch import config
 from aleo_tpu_torch.curves import g1_affine as ga
+from aleo_tpu_torch.curves import g1_fused as gf
 from aleo_tpu_torch.fields import fmat_kernels as fk
 from aleo_tpu_torch.ntt import ntt as dntt
 from aleo_tpu_torch.pcs.srs import Srs
@@ -55,7 +58,8 @@ function bump:
 
 
 PATTERNS = ("fmat_reduce", "fmat_carry2d", "fmat_carry3d", "fq_prepare", "fq_mul",
-            "fq_fermat", "fq_apply", "gemm")
+            "fq_fermat", "fq_apply", "g1_double", "g1_add_kernel", "g1_add_sel_kernel",
+            "g1_add_sel_proj", "g1_normalize", "gemm")
 NTT_ENTRIES = ("ntt_lf", "intt_lf", "coset_ntt_lf", "coset_intt_lf")
 
 
@@ -136,6 +140,7 @@ def main(argv):
 
     ga.reset_launches()
     fk.reset_launches()
+    gf.reset_launches()
     for name in NTT_ENTRIES:
         setattr(dntt, name, logged(name))
     try:
@@ -146,7 +151,7 @@ def main(argv):
     finally:
         for name in NTT_ENTRIES:
             setattr(dntt, name, real[name])
-    port_launches = {**ga.LAUNCHES, **fk.LAUNCHES}
+    port_launches = {**ga.LAUNCHES, **fk.LAUNCHES, **gf.LAUNCHES}
     rows = kernel_rows(p)
     device_s = sum(r[1] for r in rows) / 1e6
 
@@ -188,6 +193,7 @@ def main(argv):
     }
     result = {
         "card": card, "circuit": which, "n": keys.index.n, "m": keys.index.m,
+        "msm_affine_mode": config.MSM_AFFINE_MODE,
         "proof_seconds": plain_s, "proof_seconds_traced": traced_s,
         "device_kernel_seconds": device_s,
         "device_busy_share_traced": device_s / traced_s if traced_s else None,

@@ -58,7 +58,7 @@ def test_importing_the_port_does_not_load_jax():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     import torch
 
-    from aleo_tpu_torch.curves import g1_affine
+    from aleo_tpu_torch.curves import g1, g1_affine, g1_fused
     from aleo_tpu_torch.fields import fr_lf
     from aleo_tpu_torch.msm import msm
     from aleo_tpu_torch.pcs.srs import Srs
@@ -72,7 +72,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: fr_lf.encode([1, 2]),
         lambda: fr_lf.one(4),
         lambda: g1_affine.identity_af(8),
+        lambda: g1_fused.identity_lf(8),
+        lambda: g1_fused.encode_lf([None]),
+        lambda: g1.identity((2,)),
         lambda: msm.msm_host([1], [None]),
+        lambda: msm.msm(torch.zeros((1, 16), dtype=torch.int32),
+                        g1.encode_points([None], device="cpu"), c=4),
         lambda: Srs.generate(4),
         lambda: indexer.index_r1cs(ConstraintSystem()),
         lambda: pipeline.synthesize_keys(Registry(), "x.aleo", "f"),
