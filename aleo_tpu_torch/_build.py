@@ -101,11 +101,15 @@ def library() -> ctypes.CDLL:
     lib.g1_add_sel_launch.argtypes = [P] * 10 + [I, P]
     lib.g1_add_sel_proj_launch.argtypes = [P] * 11 + [I, P]
     lib.g1_normalize_launch.argtypes = [P] * 6 + [I, P]
+    lib.fq_mul_canon_launch.argtypes = [P] * 3 + [I, P]
+    lib.fq_mul_chain12_launch.argtypes = [P] * 3 + [I, P]
+    lib.fr_mul_launch.argtypes = [P] * 3 + [I, P]
     for fn in (lib.fq_mul_launch, lib.fq_prepare_launch, lib.fq_apply_launch,
                lib.fq_fermat_launch, lib.fmat_reduce_launch,
                lib.fmat_carry2d_launch, lib.fmat_carry3d_launch,
                lib.g1_double_launch, lib.g1_add_launch, lib.g1_add_sel_launch,
-               lib.g1_add_sel_proj_launch, lib.g1_normalize_launch):
+               lib.g1_add_sel_proj_launch, lib.g1_normalize_launch,
+               lib.fq_mul_canon_launch, lib.fq_mul_chain12_launch, lib.fr_mul_launch):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -12,6 +12,9 @@
 // Memory layout: limbs first. Limb l of lane m lies at p[l * ld + m], so the
 // threads of a warp read neighbouring addresses for every limb.
 //
+// Loads, stores, the borrow chain and the Montgomery product are those of
+// mont.cuh at 12 words (the same templates serve Fr at 8 words, fr.cuh).
+//
 // The constants below are checked against params.Q by the CPU test-suite
 // (tests/test_torch_g1_affine.py parses this header). They are `static`: every
 // source that includes this header (g1_affine.cu, g1_fused.cu) holds its own
@@ -19,6 +22,8 @@
 
 #pragma once
 #include <stdint.h>
+
+#include "mont.cuh"
 
 #define FQ_WORDS 12
 #define FQ_LIMBS 24
@@ -48,21 +53,12 @@ static __constant__ uint32_t FQ_EXP[FQ_WORDS] = {
 // Pack 24 16-bit limbs (one per int32 word of memory) into 12 32-bit words.
 __device__ __forceinline__ void fq_load(uint32_t w[FQ_WORDS], const int* __restrict__ p,
                                         long ld, long m) {
-#pragma unroll
-    for (int i = 0; i < FQ_WORDS; i++) {
-        uint32_t lo = (uint32_t)p[(long)(2 * i) * ld + m];
-        uint32_t hi = (uint32_t)p[(long)(2 * i + 1) * ld + m];
-        w[i] = lo | (hi << 16);
-    }
+    mw_load<FQ_WORDS>(w, p, ld, m);
 }
 
 __device__ __forceinline__ void fq_store(int* __restrict__ p, long ld, long m,
                                          const uint32_t w[FQ_WORDS]) {
-#pragma unroll
-    for (int i = 0; i < FQ_WORDS; i++) {
-        p[(long)(2 * i) * ld + m] = (int)(w[i] & 0xffffu);
-        p[(long)(2 * i + 1) * ld + m] = (int)(w[i] >> 16);
-    }
+    mw_store<FQ_WORDS>(p, ld, m, w);
 }
 
 __device__ __forceinline__ void fq_copy(uint32_t r[FQ_WORDS], const uint32_t a[FQ_WORDS]) {
@@ -100,22 +96,12 @@ __device__ __forceinline__ void u384_add(uint32_t r[FQ_WORDS], const uint32_t a[
 // r = a - b mod 2^384; returns the borrow (1 iff a < b)
 __device__ __forceinline__ uint32_t u384_sub(uint32_t r[FQ_WORDS], const uint32_t a[FQ_WORDS],
                                              const uint32_t b[FQ_WORDS]) {
-    uint64_t bw = 0;
-#pragma unroll
-    for (int i = 0; i < FQ_WORDS; i++) {
-        uint64_t d = (uint64_t)a[i] - (uint64_t)b[i] - bw;
-        r[i] = (uint32_t)d;
-        bw = (d >> 32) & 1u;
-    }
-    return (uint32_t)bw;
+    return mw_sub<FQ_WORDS>(r, a, b);
 }
 
 // v -> v - c if v >= c (c = p or 2p)
 __device__ __forceinline__ void fq_cond_sub(uint32_t v[FQ_WORDS], const uint32_t* c) {
-    uint32_t cc[FQ_WORDS], d[FQ_WORDS];
-    fq_set_const(cc, c);
-    uint32_t borrow = u384_sub(d, v, cc);
-    fq_select(v, borrow == 0, d, v);
+    mw_cond_sub<FQ_WORDS>(v, c);
 }
 
 // ---- field ops (lazy: operands <= 2p, results < 2p unless noted) -------------
@@ -168,44 +154,12 @@ __device__ __forceinline__ bool fq_is_zero(const uint32_t v[FQ_WORDS]) {
     return (or0 == 0) | (orp == 0);
 }
 
-// Montgomery product a*b*2^-384 (CIOS over 32-bit words, 64-bit
-// multiply-adds). Operands < 2p give a result < 2p; no final subtraction.
-// The quotient digits m are those of the full-radix reduction, so the
-// integer result equals the plain version's exactly.
+// Montgomery product a*b*2^-384 (CIOS over 32-bit words, mont.cuh).
+// Operands < 2p give a result < 2p; no final subtraction, so the integer
+// result equals the plain version's exactly.
 __device__ __forceinline__ void fq_mul(uint32_t r[FQ_WORDS], const uint32_t a[FQ_WORDS],
                                        const uint32_t b[FQ_WORDS]) {
-    uint32_t t[FQ_WORDS + 2];
-#pragma unroll
-    for (int i = 0; i < FQ_WORDS + 2; i++) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < FQ_WORDS; i++) {
-        uint64_t c = 0;
-        uint32_t bi = b[i];
-#pragma unroll
-        for (int j = 0; j < FQ_WORDS; j++) {
-            uint64_t s = (uint64_t)a[j] * bi + t[j] + c;
-            t[j] = (uint32_t)s;
-            c = s >> 32;
-        }
-        uint64_t s = (uint64_t)t[FQ_WORDS] + c;
-        t[FQ_WORDS] = (uint32_t)s;
-        t[FQ_WORDS + 1] = (uint32_t)(s >> 32);
-
-        uint32_t m = t[0] * FQ_NP0;
-        s = (uint64_t)m * FQ_P[0] + t[0];
-        c = s >> 32;
-#pragma unroll
-        for (int j = 1; j < FQ_WORDS; j++) {
-            s = (uint64_t)m * FQ_P[j] + t[j] + c;
-            t[j - 1] = (uint32_t)s;
-            c = s >> 32;
-        }
-        s = (uint64_t)t[FQ_WORDS] + c;
-        t[FQ_WORDS - 1] = (uint32_t)s;
-        t[FQ_WORDS] = t[FQ_WORDS + 1] + (uint32_t)(s >> 32);
-    }
-#pragma unroll
-    for (int i = 0; i < FQ_WORDS; i++) r[i] = t[i];
+    mw_mont_mul<FQ_WORDS>(r, a, b, FQ_P, FQ_NP0);
 }
 
 __device__ __forceinline__ void fq_sq(uint32_t r[FQ_WORDS], const uint32_t a[FQ_WORDS]) {

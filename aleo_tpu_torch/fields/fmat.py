@@ -234,7 +234,12 @@ def dft_apply(bank: torch.Tensor, x: torch.Tensor, E_out: int) -> torch.Tensor:
     and lane sizes multiples of 8); nothing stands in for it.
     """
     T = x.shape[-1]
-    t_cols = torch._int_mm(bank, x.contiguous())
+    x = x.contiguous()
+    if x.stride() != (T, 1):
+        # a single lane (T = 1) counts as contiguous whatever its row stride
+        # is, and the product reads the strides: give it the plain ones
+        x = x.clone(memory_format=torch.contiguous_format)
+    t_cols = torch._int_mm(bank, x)
     u = mont_reduce_cols(t_cols.reshape(K7, E_out * T))
     return u.reshape(L7 * E_out, T)
 

@@ -6,6 +6,15 @@ plain PyTorch on the plain limb arithmetic of `fields.limb_kernels`, on
 whichever device the operands lie. Values between ops are lazy (< 2r);
 `normalize`/`decode` give canonical values.
 
+Batch axes. Every op also takes (L, ..., N) tensors: axis 0 is the limbs,
+the LAST axis is the lanes, and any axes between are batch axes (the proof
+axis of the batch prover, `snark/batch.py`, which holds k proofs as
+(L, k, N)). The elementwise ops are lane-wise and broadcast over them; the
+ops that run ALONG the lanes (`scan_mul`, `batch_inv`, `tree_sum`, `powers`)
+index the last axis, so each batch row is scanned, inverted, summed or
+raised on its own, in the same launches as a single row. This is where the
+reference lifts its functions with `jax.vmap`.
+
 Counterpart of the JAX package's `fields/fr_lf.py` (plain XLA there, plain
 torch here); functions that create tensors take an explicit `device`.
 """
@@ -57,7 +66,7 @@ def normalize(a):
 
 def select(cond, a, b):
     """cond: (N,) bool -> per-lane select."""
-    return torch.where(cond[None, :], a, b)
+    return torch.where(cond, a, b)
 
 
 def from_mont(a):
@@ -76,15 +85,15 @@ def from_mont(a):
 
 def scan_mul(a, reverse: bool = False):
     """Inclusive prefix product along the lane axis (Hillis-Steele)."""
-    n = a.shape[1]
+    n = a.shape[-1]
     o = 1
     while o < n:
         if reverse:
-            head = mul(a[:, : n - o], a[:, o:])
-            a = torch.cat([head, a[:, n - o :]], dim=1)
+            head = mul(a[..., : n - o], a[..., o:])
+            a = torch.cat([head, a[..., n - o :]], dim=-1)
         else:
-            tail = mul(a[:, o:], a[:, : n - o])
-            a = torch.cat([a[:, :o], tail], dim=1)
+            tail = mul(a[..., o:], a[..., : n - o])
+            a = torch.cat([a[..., :o], tail], dim=-1)
         o *= 2
     return a
 
@@ -93,45 +102,46 @@ def inv(a):
     """Elementwise inverse. The reference runs a 253-step Fermat scan on the
     device; the value is the modular inverse, which is taken here on host
     integers (this is only ever called on a handful of lanes)."""
-    xs = decode(a)
-    return encode([pow(int(x), -1, R) for x in xs], device=a.device)
+    xs = decode(a.reshape(L, -1))
+    return encode([pow(int(x), -1, R) for x in xs], device=a.device).reshape(a.shape)
 
 
 def batch_inv(a):
     """Batched inversion along lanes (prefix/suffix products + one
-    inversion). No zero entries (zeros produce garbage, as in the
+    inversion for each batch row, all rows' totals inverted after one
+    readback). No zero entries (zeros produce garbage, as in the
     reference)."""
-    n = a.shape[1]
+    n = a.shape[-1]
     if n == 1:
         return inv(a)
     pre = scan_mul(a)
     suf = scan_mul(a, reverse=True)
-    total_inv = inv(pre[:, -1:])
-    o = one(1, device=a.device)
-    pre_shift = torch.cat([o, pre[:, :-1]], dim=1)
-    suf_shift = torch.cat([suf[:, 1:], o], dim=1)
+    total_inv = inv(pre[..., -1:])
+    o = one(1, device=a.device).reshape((L,) + (1,) * (a.dim() - 1)).expand(a.shape[:-1] + (1,))
+    pre_shift = torch.cat([o, pre[..., :-1]], dim=-1)
+    suf_shift = torch.cat([suf[..., 1:], o], dim=-1)
     return mul(mul(pre_shift, suf_shift), total_inv)
 
 
 def tree_sum(x):
-    """Field-add reduction along lanes -> (L, 1)."""
-    while x.shape[1] > 1:
-        n = x.shape[1]
+    """Field-add reduction along lanes -> (L, ..., 1)."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
         half = n // 2
-        s = add(x[:, :half], x[:, half : 2 * half])
-        x = torch.cat([s, x[:, 2 * half :]], dim=1) if n % 2 else s
+        s = add(x[..., :half], x[..., half : 2 * half])
+        x = torch.cat([s, x[..., 2 * half :]], dim=-1) if n % 2 else s
     return x
 
 
 def powers(z, n: int):
-    """[z^0 .. z^(n-1)] as (L, n); z: (L, 1)."""
-    out = one(1, device=z.device)
+    """[z^0 .. z^(n-1)] as (L, ..., n); z: (L, ..., 1)."""
+    out = one(1, device=z.device).reshape((L,) + (1,) * (z.dim() - 1)).expand(z.shape)
     zp = z
-    while out.shape[1] < n:
+    while out.shape[-1] < n:
         # out holds z^0..z^(k-1) and zp = z^k: append zp * out
-        out = torch.cat([out, mul(out, zp)], dim=1)
+        out = torch.cat([out, mul(out, zp)], dim=-1)
         zp = sq(zp)
-    return out[:, :n].contiguous()
+    return out[..., :n].contiguous()
 
 
 # -- host <-> device -----------------------------------------------------------

@@ -12,7 +12,9 @@ Numeric discipline ("lazy reduction"):
   * `normalize` produces canonical < p values at batch boundaries.
 
 Every public function takes and returns STORE (int32) tensors of shape
-(L, ...) on any device; constants follow the operand's device. Inside, the
+(L, ...) on any device; constants follow the operand's device. Operands
+broadcast with the limb axis held in place: (L, n) against (L, k, n) is read
+as (L, 1, n). Inside, the
 work is int64 on a flattened (rows, M) view:
 
   * a product's columns are accumulated without carries (terms < 2^32, a
@@ -199,6 +201,11 @@ def _lift(fn, nargs):
     def op(ring: LimbRing, *xs):
         assert len(xs) == nargs
         if nargs > 1:
+            # axis 0 is the limbs and the last axis the lanes: an operand of
+            # lower rank (a shared (L, n) table or an (L, 1) constant against
+            # (L, k, n) batch rows) gets its missing batch axes after axis 0
+            nd = max(x.dim() for x in xs)
+            xs = [x.reshape(x.shape[:1] + (1,) * (nd - x.dim()) + x.shape[1:]) for x in xs]
             xs = torch.broadcast_tensors(*xs)
         shape = xs[0].shape
         assert shape[0] == ring.L, f"{ring.name}: expected {ring.L} limb rows"

@@ -65,31 +65,32 @@ def _nwin(c: int) -> int:
 
 
 def signed_digits(scalars_raw: torch.Tensor, c: int) -> torch.Tensor:
-    """(N, FR_LIMBS) raw 16-bit limbs -> (W, N) int32 signed window digits.
+    """(..., N, FR_LIMBS) raw 16-bit limbs -> (..., W, N) int32 signed window
+    digits (leading axes, the k of a batch of MSMs, ride along).
 
     Digits lie in [-(2^(c-1)-1), 2^(c-1)] and satisfy
     sum_w d_w 2^(cw) == scalar. Requires c <= 16.
     """
     assert 2 <= c <= 16
-    n = scalars_raw.shape[0]
+    lead = scalars_raw.shape[:-1]
     w_total = _nwin(c)
     half = 1 << (c - 1)
     padded = torch.cat(
         [scalars_raw.to(torch.int64),
-         torch.zeros((n, 2), dtype=torch.int64, device=scalars_raw.device)],
+         torch.zeros(lead + (2,), dtype=torch.int64, device=scalars_raw.device)],
         dim=-1,
     )
-    carry = torch.zeros((n,), dtype=torch.int64, device=scalars_raw.device)
+    carry = torch.zeros(lead, dtype=torch.int64, device=scalars_raw.device)
     out = []
     for w in range(w_total):
         bit0 = w * c
         j0, sh = bit0 // 16, bit0 % 16
-        v = padded[:, j0] | (padded[:, j0 + 1] << 16)
+        v = padded[..., j0] | (padded[..., j0 + 1] << 16)
         d = ((v >> sh) & ((1 << c) - 1)) + carry
         big = d > half
         out.append(torch.where(big, d - (1 << c), d))
         carry = big.to(torch.int64)
-    return torch.stack(out, dim=0).to(torch.int32)
+    return torch.stack(out, dim=-2).to(torch.int32)
 
 
 def make_table(points: G1Points) -> torch.Tensor:
@@ -121,18 +122,18 @@ def _top_window_split(c: int, w_total: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _lane_layout_np(c: int, w_total: int):
+def _lane_layout_np(c: int, w_total: int, k: int = 1):
     """Static per-lane layout (numpy): sub offsets, strides, merge masks,
-    and the post-merge reshuffle.
+    and the post-merge reshuffle, for k MSMs over one table.
 
-    Lane grid: W * half lanes, window-major. Normal windows: one lane per
-    bucket (stride 1). Top window: bucket b's segment is interleaved across s
-    lanes (stride s); merge mask d selects lanes with sub % 2^(d+1) == 0 and
-    sub + 2^d < s.
+    Lane grid: k * W * half lanes, MSM-major then window-major. Normal
+    windows: one lane per bucket (stride 1). Top window of each MSM: bucket
+    b's segment is interleaved across s lanes (stride s); merge mask d
+    selects lanes with sub % 2^(d+1) == 0 and sub + 2^d < s.
     """
     half = 1 << (c - 1)
     mag_top, s = _top_window_split(c, w_total)
-    lanes = w_total * half
+    lanes = k * w_total * half
     iota = np.arange(lanes)
     win = (iota // half) % w_total
     lane_in_win = iota % half
@@ -161,17 +162,25 @@ def _lane_layout_np(c: int, w_total: int):
     )
 
 
-def _bucket_grid(sorted_keys: torch.Tensor, c: int, w_total: int):
-    """(lane_start, lane_stride, lane_count) int64 tensors over the lane grid,
-    with top-window sub-splitting applied."""
+def _sort_keys(msm_ids, win_ids, mag, c: int):
+    """The sort key of a (MSM, window, |digit|) entry, int64: the MSM's
+    index above the window's above the magnitude's c bits. Windows get 8
+    bits (W <= 127 for c >= 2), as in the reference's 32-bit packing; for a
+    single MSM the index is 0 and the key is the reference's k = 1 key."""
+    return (msm_ids << (c + 8)) | (win_ids << c) | mag
+
+
+def _bucket_grid(sorted_keys: torch.Tensor, c: int, w_total: int, k: int = 1):
+    """(lane_start, lane_stride, lane_count) int64 tensors over the lane grid
+    of k MSMs, with top-window sub-splitting applied."""
     half = 1 << (c - 1)
     dev = sorted_keys.device
     sub_np, bucket_np, stride_np, merge_masks, src_np, keep_np, s = (
-        _lane_layout_np(c, w_total)
+        _lane_layout_np(c, w_total, k)
     )
-    qwin = torch.arange(w_total, dtype=torch.int64, device=dev).repeat_interleave(half)
+    ids = torch.arange(k * w_total, dtype=torch.int64, device=dev).repeat_interleave(half)
     qmag = torch.from_numpy(bucket_np).to(dev) + 1
-    qkeys = (qwin << c) | qmag
+    qkeys = _sort_keys(ids // w_total, ids % w_total, qmag, c)
     starts = torch.searchsorted(sorted_keys, qkeys, right=False)
     ends = torch.searchsorted(sorted_keys, qkeys, right=True)
     counts = ends - starts
@@ -180,6 +189,27 @@ def _bucket_grid(sorted_keys: torch.Tensor, c: int, w_total: int):
     lane_start = starts + sub
     lane_count = torch.clamp((counts - sub + stride - 1) // stride, min=0)
     return lane_start, stride, lane_count, merge_masks, src_np, keep_np, s
+
+
+def _top_windows(a: torch.Tensor, k: int, half: int) -> torch.Tensor:
+    """The lanes of every MSM's top window out of a (rows, k * W * half) lane
+    grid -> (rows, k * half)."""
+    rows = a.shape[0]
+    return a.reshape(rows, k, -1, half)[:, :, -1].reshape(rows, k * half)
+
+
+def _put_top_windows(a: torch.Tensor, top: torch.Tensor, k: int, half: int) -> torch.Tensor:
+    """The grid `a` with its top windows replaced by `top` (rows, k * half)."""
+    rows = a.shape[0]
+    a4 = a.reshape(rows, k, -1, half)
+    return torch.cat([a4[:, :, :-1], top.reshape(rows, k, 1, half)], dim=2).reshape(rows, -1)
+
+
+def _merge_partner_idx(k: int, half: int, shift: int, dev) -> torch.Tensor:
+    """Lane `shift` to the right within its own top window (clamped), over
+    the (k * half) top-window lanes."""
+    idx = torch.clamp(torch.arange(half, device=dev) + shift, max=half - 1)
+    return (torch.arange(k, device=dev)[:, None] * half + idx[None, :]).reshape(-1)
 
 
 # Overflow balancing: fraction of extra "spare" lanes that adopt the second
@@ -244,34 +274,28 @@ def run_rounds_af(sorted_pt, sorted_sign, table, lane_start, lane_stride,
 
 def _accumulate_buckets_af(
     sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
-    merge_masks, src_np, keep_np, m_exp: int, half: int,
+    merge_masks, src_np, keep_np, m_exp: int, half: int, k: int = 1,
 ) -> G1AF:
     """Round-robin batch-affine accumulation + top-window merge/reshuffle.
-    `half` is the lane count of one window."""
+    `half` is the lane count of one window, `k` the number of MSMs."""
     dev = table.device
-    lanes = lane_start.shape[0]
     acc = run_rounds_af(
         sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count, m_exp
     )
 
-    # merge the top window's sub-accumulators: log2(s) masked adds over that
-    # window's lanes alone (the last `half` lanes of the grid; no other lane
-    # has a partner)
+    # merge the top windows' sub-accumulators: log2(s) masked adds over those
+    # windows' lanes alone (the last `half` lanes of each MSM's grid; no
+    # other lane has a partner)
     if len(merge_masks):
-        top = G1AF(acc.x[:, -half:], acc.y[:, -half:], acc.inf[:, -half:])
-        iota = torch.arange(half, device=dev)
+        top = G1AF(*(_top_windows(a, k, half) for a in acc))
         shift = 1
         for mask_np in merge_masks:
-            idx = torch.clamp(iota + shift, max=half - 1)
+            idx = _merge_partner_idx(k, half, shift, dev)
             partner = G1AF(top.x[:, idx], top.y[:, idx], top.inf[:, idx])
-            mask = torch.from_numpy(mask_np[-half:]).to(dev)
+            mask = _top_windows(torch.from_numpy(mask_np).to(dev)[None, :], k, half)
             top = ga.add_pairs(top, partner, valid=mask)
             shift *= 2
-        acc = G1AF(
-            torch.cat([acc.x[:, :-half], top.x], dim=1),
-            torch.cat([acc.y[:, :-half], top.y], dim=1),
-            torch.cat([acc.inf[:, :-half], top.inf], dim=1),
-        )
+        acc = G1AF(*(_put_top_windows(a, t, k, half) for a, t in zip(acc, top)))
         src = torch.from_numpy(src_np).to(dev)
         keep = torch.from_numpy(keep_np).to(dev)[None, :] != 0
         acc = G1AF(
@@ -444,14 +468,16 @@ def _weighted_bucket_sum(p: G1LF, w: int, b: int) -> G1LF:
 
 def _accumulate_buckets(
     sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
-    merge_masks, src_np, keep_np, m_exp: int, half: int,
+    merge_masks, src_np, keep_np, m_exp: int, half: int, k: int = 1,
 ) -> G1LF:
     """Round-robin mixed-add accumulation + top-window merge/reshuffle. No
-    tail balancing on this path. `half` is the lane count of one window."""
+    tail balancing on this path. `half` is the lane count of one window, `k`
+    the number of MSMs."""
     L = table.shape[1] // 2
     dev = table.device
     lanes = lane_start.shape[0]
-    # the one device->host read of an MSM: how many rounds its data needs
+    # the one device->host read of a batch of MSMs: how many rounds its data
+    # needs
     max_count = int(lane_count.max().item())
     acc = gf.identity_lf(lanes, device=dev)
     for j in range(max_count):
@@ -460,25 +486,24 @@ def _accumulate_buckets(
         coords = table[sorted_pt[pos]].T.contiguous()       # (2L, lanes)
         acc = gf.add_sel_lf(acc, coords[:L], coords[L:], sorted_sign[pos], valid)
 
-    # merge the top window's sub-accumulators: log2(s) masked adds over that
-    # window's lanes alone (the last `half` lanes of the grid; no other lane
-    # has a partner)
+    # merge the top windows' sub-accumulators: log2(s) masked adds over those
+    # windows' lanes alone (the last `half` lanes of each MSM's grid; no
+    # other lane has a partner)
     if len(merge_masks):
-        top = G1LF(*(a[:, -half:] for a in acc))
-        iota = torch.arange(half, device=dev)
-        sign = torch.zeros((1, half), dtype=STORE, device=dev)
+        top = G1LF(*(_top_windows(a, k, half) for a in acc))
+        sign = torch.zeros((1, k * half), dtype=STORE, device=dev)
         shift = 1
         for mask_np in merge_masks:
-            idx = torch.clamp(iota + shift, max=half - 1)
+            idx = _merge_partner_idx(k, half, shift, dev)
             partner = G1LF(*(a[:, idx] for a in top))
-            mask = torch.from_numpy(mask_np[-half:]).to(dev)
+            mask = _top_windows(torch.from_numpy(mask_np).to(dev)[None, :], k, half)
             top = gf.add_sel_proj_lf(top, partner, sign, mask)
             shift *= 2
         ident = gf.identity_lf(1, device=dev)
         src = torch.from_numpy(src_np).to(dev)
         keep = torch.from_numpy(keep_np).to(dev)[None, :] != 0
         acc = G1LF(*(
-            torch.where(keep, torch.cat([a[:, :-half], t], dim=1)[:, src], i)
+            torch.where(keep, _put_top_windows(a, t, k, half)[:, src], i)
             for a, t, i in zip(acc, top, ident)
         ))
     return acc
@@ -494,33 +519,53 @@ def msm_windows(scalars_raw: torch.Tensor, table: torch.Tensor, c: int) -> G1LF:
     scalars_raw: (N, FR_LIMBS) int32 standard-form 16-bit limbs (lazy < 2r
     allowed: the group order absorbs +r and the digits cover 254 bits).
     table: (N, 2L) gather table from `make_table`, on the same device.
+    One MSM is a batch of one: the same code as `msm_windows_batch`.
     """
-    n = table.shape[0]
+    return msm_windows_batch(scalars_raw[None], table, c)
+
+
+def msm_windows_batch(scalars_raw: torch.Tensor, table: torch.Tensor, c: int) -> G1LF:
+    """Multi-MSM over a SHARED point table: k MSMs in one bucket pipeline.
+
+    scalars_raw: (k, N, FR_LIMBS) int32 standard-form limbs; table: (N, 2L).
+    Returns G1LF with batch axis k * W (MSM-major): lane p * W + w holds MSM
+    p's window-w total.
+
+    The batch rides the one-global-sort formulation: the MSM's index joins
+    the sort key above (window, |digit|), so the k MSMs share every round's
+    add across k * W * 2^(c-1) lanes. The round count is the largest
+    segment over ALL k MSMs (about a single MSM's), read back once for the
+    whole batch, while the lanes of a launch grow k-fold. Keys are int64
+    (`torch.sort(stable=True)` is exact on them); sign and point index are
+    permuted apart from the key.
+    """
+    k, n = scalars_raw.shape[0], scalars_raw.shape[1]
+    assert table.shape[0] == n
     dev = table.device
     w_total = _nwin(c)
     half = 1 << (c - 1)
-    m_exp = w_total * n  # expanded (window, point) pairs
+    m_exp = k * w_total * n  # expanded (MSM, window, point) triples
 
-    digits = signed_digits(scalars_raw, c)  # (W, N) int32
+    digits = signed_digits(scalars_raw, c)  # (k, W, N) int32
     mag = digits.abs().to(torch.int64)
     sign = (digits < 0).to(STORE)
 
-    win_ids = torch.arange(w_total, dtype=torch.int64, device=dev).repeat_interleave(n)
-    keys = (win_ids << c) | mag.reshape(-1)
-    pt_ids = torch.arange(n, dtype=torch.int64, device=dev).repeat(w_total)
+    ids = torch.arange(k * w_total, dtype=torch.int64, device=dev).repeat_interleave(n)
+    keys = _sort_keys(ids // w_total, ids % w_total, mag.reshape(-1), c)
+    pt_ids = torch.arange(n, dtype=torch.int64, device=dev).repeat(k * w_total)
     sorted_keys, perm = torch.sort(keys, stable=True)
     sorted_pt = pt_ids[perm]
     sorted_sign = sign.reshape(-1)[perm]
 
     lane_start, lane_stride, lane_count, merge_masks, src_np, keep_np, _s = (
-        _bucket_grid(sorted_keys, c, w_total)
+        _bucket_grid(sorted_keys, c, w_total, k)
     )
     grid = (sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
-            merge_masks, src_np, keep_np, m_exp, half)
+            merge_masks, src_np, keep_np, m_exp, half, k)
     if _use_affine():
         buckets = _accumulate_buckets_af(*grid)
-        return ga.to_lf(_weighted_bucket_sum_af(buckets, w_total, half))
-    return _weighted_bucket_sum(_accumulate_buckets(*grid), w_total, half)
+        return ga.to_lf(_weighted_bucket_sum_af(buckets, k * w_total, half))
+    return _weighted_bucket_sum(_accumulate_buckets(*grid), k * w_total, half)
 
 
 def _combine_device(windows: G1LF, c: int) -> G1Points:
@@ -550,17 +595,22 @@ def msm(scalars_raw: torch.Tensor, points: G1Points, c: int | None = None,
     return _combine_device(msm_windows(scalars_raw.to(device), table, c=c), c)
 
 
-def combine_windows_host(windows: G1LF, c: int):
-    """Decode per-window totals and Horner-combine with host bigints."""
+def horner_windows_host(pts, c: int):
+    """Window totals [(x, y) | None], lowest window first -> their Horner
+    combination on host bigints."""
     from ..reference.curve import G1
 
-    pts = gf.decode_lf(windows)  # [(x, y) | None] length W
     acc = None
     for p in reversed(pts):
         for _ in range(c):
             acc = G1.double(acc)
         acc = G1.add(acc, p)
     return acc
+
+
+def combine_windows_host(windows: G1LF, c: int):
+    """Decode per-window totals and Horner-combine with host bigints."""
+    return horner_windows_host(gf.decode_lf(windows), c)
 
 
 def msm_fast_host(scalars_raw: torch.Tensor, table: torch.Tensor, c: int | None = None):
@@ -573,6 +623,21 @@ def msm_fast_host(scalars_raw: torch.Tensor, table: torch.Tensor, c: int | None 
     if c is None:
         c = auto_c(scalars_raw.shape[0])
     return combine_windows_host(msm_windows(scalars_raw, table, c=c), c)
+
+
+def msm_batch_host(scalars_raw: torch.Tensor, table: torch.Tensor, c: int | None = None):
+    """k MSMs over one table -> k host affine points (one device bucket
+    pipeline for the batch, one decode and one transfer of all k * W window
+    totals, then a host window combine for each MSM)."""
+    k = scalars_raw.shape[0]
+    if c is None:
+        c = auto_c(scalars_raw.shape[1])
+    # the reference packs its sort key into 32 bits; the port's keys are
+    # int64 and would hold more, but both take the same batches
+    assert c + 8 + k.bit_length() <= 32, "sort key packing overflow"
+    pts = gf.decode_lf(msm_windows_batch(scalars_raw, table, c=c))
+    w_total = _nwin(c)
+    return [horner_windows_host(pts[p * w_total : (p + 1) * w_total], c) for p in range(k)]
 
 
 def msm_host(scalars, points_affine, c: int | None = None, device=None):

@@ -245,8 +245,10 @@ def transform7(x7: torch.Tensor, p: Plan, batch: int = 1) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# public API: (16, n) int32 16-bit Montgomery limbs, lazy in/out. The plans
-# of one (n, direction, shift) are cached with their device banks.
+# public API: (16, n) int32 16-bit Montgomery limbs, lazy in/out, or
+# (16, k, n) for k transforms side by side (the layout of `fields.fr_lf`'s
+# batch axes). The plans of one (n, direction, shift) are cached with their
+# device banks.
 # ---------------------------------------------------------------------------
 
 
@@ -261,8 +263,9 @@ def _plans(n: int, inverse: bool, shift: int | None):
     return p, sp
 
 
-def _run(x16: torch.Tensor, inverse: bool, shift: int | None, batch: int = 1):
+def _run(x16: torch.Tensor, inverse: bool, shift: int | None):
     """x16: (16, [batch,] n) -> the same shape, transformed."""
+    batch = x16.shape[1] if x16.dim() == 3 else 1
     p, sp = _plans(x16.shape[-1], inverse, shift)
     bshape = (L7, batch) + tuple(p.dims)
     x7 = fmat.pack7(x16)
@@ -294,9 +297,8 @@ def coset_intt_lf16(x16: torch.Tensor, shift: int) -> torch.Tensor:
 
 
 def _batched(x16: torch.Tensor, inverse: bool, shift: int | None) -> torch.Tensor:
-    k = x16.shape[0]
     # (k, 16, n) -> (16, k, n): limbs leading for pack7; back at the end
-    out = _run(x16.transpose(0, 1), inverse, shift, batch=k)
+    out = _run(x16.transpose(0, 1), inverse, shift)
     return out.transpose(0, 1).contiguous()
 
 

@@ -116,28 +116,32 @@ def domain(n: int) -> Domain:
 
 
 def _transform_lf(x: torch.Tensor, wpow: torch.Tensor, bitrev) -> torch.Tensor:
-    """Core DIT butterfly network, limbs-first. x: (L, n), lazy < 2p in and
-    out; wpow: (L, n) power table; bitrev: (n,) int64 permutation."""
-    n = x.shape[1]
+    """Core DIT butterfly network, limbs-first. x: (L, ..., n), lazy < 2p in
+    and out (axes between limbs and lanes are batch rows, transformed side
+    by side in the same launches); wpow: (L, n) power table; bitrev: (n,)
+    int64 permutation."""
+    n = x.shape[-1]
     if n == 1:
         return x
+    lead = x.shape[:-1]
     logn = n.bit_length() - 1
-    x = x[:, bitrev]
+    x = x[..., bitrev]
     for s in range(logn):
         half = 1 << s
         nblk = n // (2 * half)
-        xr = x.reshape(L, nblk, 2, half)
-        lo = xr[:, :, 0]
-        hi = xr[:, :, 1]
-        tw = wpow[:, :: n >> (s + 1)][:, None, :half]      # (L, 1, half)
+        xr = x.reshape(lead + (nblk, 2, half))
+        lo = xr[..., 0, :]
+        hi = xr[..., 1, :]
+        tw = wpow[:, :: n >> (s + 1)][:, :half]             # (L, half)
+        tw = tw.reshape((L,) + (1,) * len(lead) + (half,))
         t = lf.mul(tw, hi)
-        x = torch.stack([lf.add(lo, t), lf.sub(lo, t)], dim=2).reshape(L, n)
+        x = torch.stack([lf.add(lo, t), lf.sub(lo, t)], dim=-2).reshape(lead + (n,))
     return x
 
 
 def _run_lf(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """(L, n) limbs-first transform, lazy in/out."""
-    d = domain(x.shape[1])
+    """(L, ..., n) limbs-first transform, lazy in/out."""
+    d = domain(x.shape[-1])
     return _transform_lf(x, d.wpow_lf(x.device, inverse), d.bitrev(x.device))
 
 
@@ -166,16 +170,17 @@ def _use_matntt(n: int) -> bool:
 
 
 def ntt_lf(x: torch.Tensor) -> torch.Tensor:
-    """Forward NTT on (L, n) limbs-first tensors; lazy in/out."""
-    if _use_matntt(x.shape[1]):
+    """Forward NTT on (L, n) limbs-first tensors, or (L, k, n) for k
+    transforms side by side; lazy in/out."""
+    if _use_matntt(x.shape[-1]):
         return matntt.ntt_lf16(x)
     return _run_lf(x, False)
 
 
 def intt_lf(x: torch.Tensor) -> torch.Tensor:
-    if _use_matntt(x.shape[1]):
+    if _use_matntt(x.shape[-1]):
         return matntt.intt_lf16(x)
-    d = domain(x.shape[1])
+    d = domain(x.shape[-1])
     return lf.mul(_run_lf(x, True), d.n_inv_mont(x.device))
 
 
@@ -201,16 +206,16 @@ def coset(n: int, shift: int) -> Coset:
 
 def coset_ntt_lf(x: torch.Tensor, shift: int) -> torch.Tensor:
     """Evaluate (L, n) coefficients on the coset shift*H; lazy in/out."""
-    if _use_matntt(x.shape[1]):
+    if _use_matntt(x.shape[-1]):
         return matntt.coset_ntt_lf16(x, shift)
-    c = coset(x.shape[1], shift)
+    c = coset(x.shape[-1], shift)
     return _run_lf(lf.mul(x, c.shift_pows_lf(x.device)), False)
 
 
 def coset_intt_lf(x: torch.Tensor, shift: int) -> torch.Tensor:
-    if _use_matntt(x.shape[1]):
+    if _use_matntt(x.shape[-1]):
         return matntt.coset_intt_lf16(x, shift)
-    c = coset(x.shape[1], shift)
-    d = domain(x.shape[1])
+    c = coset(x.shape[-1], shift)
+    d = domain(x.shape[-1])
     y = lf.mul(_run_lf(x, True), d.n_inv_mont(x.device))
     return lf.mul(y, c.shift_pows_lf(x.device, True))

@@ -17,7 +17,7 @@ from .. import params
 from ..curves.g1 import G1Points
 from ..curves import g1_fused as gf
 from ..fields import fr_lf as flf
-from ..msm.msm import auto_c, combine_windows_host, make_table, msm_fast_host, msm_windows
+from ..msm.msm import auto_c, horner_windows_host, make_table, msm_fast_host, msm_windows
 from ..reference.curve import G1, G2, pairing_check
 from ..utils import profiling as prof
 from . import poly_lf as pl_lf
@@ -83,9 +83,10 @@ def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
     """Commit a list of limbs-first polynomials, grouped by padded size.
 
     A size group shares one gather table; its MSMs run one after another and
-    the per-window totals of the whole group are read back in ONE host
-    transfer. shift > 0 commits X^shift * p_i against the sliced SRS
-    (shared-offset degree-bound commitments).
+    the per-window totals of the whole group are normalized on the device
+    and read back in ONE host transfer. shift > 0 commits X^shift * p_i
+    against the SRS points from `shift` on (shared-offset degree-bound
+    commitments).
     """
     groups = {}
     for i, p in enumerate(polys_lf):
@@ -102,14 +103,12 @@ def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
                 raw = flf.from_mont(pl_lf.pad_to(polys_lf[i], n_pad)).T.contiguous()
                 wins.append(msm_windows(raw, table, c=cg))
         W = wins[0].x.shape[1]
-        # one device->host transfer for the whole group
-        allw = gf.G1LF(*(
-            torch.cat([getattr(w, k) for w in wins], dim=1).cpu() for k in "xyz"
-        ))
+        # one normalize and one device->host transfer for the whole group
+        pts = gf.decode_lf(gf.G1LF(*(
+            torch.cat([getattr(w, k) for w in wins], dim=1) for k in "xyz"
+        )))
         for j, i in enumerate(idxs):
-            out[i] = combine_windows_host(
-                gf.G1LF(*(a[:, j * W : (j + 1) * W] for a in allw)), cg
-            )
+            out[i] = horner_windows_host(pts[j * W : (j + 1) * W], cg)
     return out
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's `pcs/poly_lf.py`, built on `fields.fr_lf`.
 All operations are O(n log n)-work, log-depth tensor code: no sequential
-coefficient recurrences.
+coefficient recurrences. Every function also takes batch axes between the
+limb axis and the coefficient axis ((L, k, n): k polynomials of k proofs,
+the layout of `fields.fr_lf`), and works on each batch row on its own.
 """
 
 from __future__ import annotations
@@ -19,78 +21,87 @@ L = lf.L
 
 
 def pad_to(coeffs: torch.Tensor, n: int) -> torch.Tensor:
-    """(L, k) -> (L, n) zero-padded on the lane axis."""
-    k = coeffs.shape[1]
+    """(L, ..., k) -> (L, ..., n) zero-padded on the lane axis."""
+    k = coeffs.shape[-1]
     assert k <= n
     if k == n:
         return coeffs
-    pad = torch.zeros((coeffs.shape[0], n - k), dtype=coeffs.dtype, device=coeffs.device)
-    return torch.cat([coeffs, pad], dim=1)
+    pad = torch.zeros(coeffs.shape[:-1] + (n - k,), dtype=coeffs.dtype, device=coeffs.device)
+    return torch.cat([coeffs, pad], dim=-1)
 
 
 def eval_coeffs(coeffs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """p(z) for coeffs (L, n), z (L, 1) -> (L, 1)."""
-    pw = lf.powers(z, coeffs.shape[1])
+    """p(z) for coeffs (L, ..., n), z (L, ..., 1) -> (L, ..., 1)."""
+    pw = lf.powers(z, coeffs.shape[-1])
     return lf.tree_sum(lf.mul(coeffs, pw))
 
 
 def _tree_reduce_axis1(x: torch.Tensor) -> torch.Tensor:
-    """Field-add reduction of (L, k, n) over axis 1 -> (L, n). k is a
-    (usually small) stack height; log-depth halving."""
-    k = x.shape[1]
+    """Field-add reduction of (L, ..., k, n) over the axis before the lanes
+    -> (L, ..., n). k is a (usually small) stack height; log-depth halving."""
+    k = x.shape[-2]
     while k > 1:
         half = k // 2
-        s = lf.add(x[:, :half], x[:, half : 2 * half])
+        s = lf.add(x[..., :half, :], x[..., half : 2 * half, :])
         if k % 2:
-            s = torch.cat([s, x[:, -1:]], dim=1)
+            s = torch.cat([s, x[..., -1:, :]], dim=-2)
         x = s
-        k = s.shape[1]
-    return x[:, 0]
+        k = s.shape[-2]
+    return x[..., 0, :]
 
 
 def fold_stack(stack: torch.Tensor, gpows: torch.Tensor) -> torch.Tensor:
-    """sum_i gpows[:, i] * stack[:, i, :]: (L, k, n), (L, k) -> (L, n)."""
-    return _tree_reduce_axis1(lf.mul(stack, gpows[:, :, None]))
+    """sum_i gpows[..., i] * stack[..., i, :]: (L, ..., k, n), (L, ..., k)
+    -> (L, ..., n)."""
+    return _tree_reduce_axis1(lf.mul(stack, gpows[..., None]))
 
 
 def divide_by_vanishing(a: torch.Tensor, n: int):
-    """Divide (L, m) by v_H(X) = X^n - 1 using X^{jn} = 1 (mod v_H).
-    Returns (quotient (L, m-n) or (L, 0), remainder (L, n))."""
-    m = a.shape[1]
+    """Divide (L, ..., m) by v_H(X) = X^n - 1 using X^{jn} = 1 (mod v_H).
+    Returns (quotient (L, ..., m-n) or (L, ..., 0), remainder (L, ..., n))."""
+    m = a.shape[-1]
+    lead = a.shape[:-1]
     if m <= n:
-        return torch.zeros((L, 0), dtype=a.dtype, device=a.device), pad_to(a, n)
+        return torch.zeros(lead + (0,), dtype=a.dtype, device=a.device), pad_to(a, n)
     k = -(-m // n)
-    chunks = pad_to(a, k * n).reshape(L, k, n)
-    rem = chunks[:, 0]
+    chunks = pad_to(a, k * n).reshape(lead + (k, n))
+    rem = chunks[..., 0, :]
     for j in range(1, k):
-        rem = lf.add(rem, chunks[:, j])
+        rem = lf.add(rem, chunks[..., j, :])
     suffix = [None] * k
-    acc = chunks[:, k - 1]
+    acc = chunks[..., k - 1, :]
     suffix[k - 1] = acc
     for j in range(k - 2, 0, -1):
-        acc = lf.add(acc, chunks[:, j])
+        acc = lf.add(acc, chunks[..., j, :])
         suffix[j] = acc
-    quo = torch.cat(suffix[1:], dim=1)[:, : m - n]
+    quo = torch.cat(suffix[1:], dim=-1)[..., : m - n]
     return quo, rem
 
 
 def divide_by_linear_via_domain(coeffs: torch.Tensor, z: torch.Tensor):
-    """(q, y) with p(X) - y = q(X)(X - z), y = p(z); coeffs (L, n), z (L, 1).
+    """(q, y) with p(X) - y = q(X)(X - z), y = p(z); coeffs (L, ..., n),
+    z (L, ..., 1).
 
     Computed on an evaluation domain: q(x_i) = (p(x_i) - y) / (x_i - z) for
     x_i in a size-n subgroup H (exact since deg q < n); requires z outside H
     (overwhelming probability for a transcript z).
     """
-    n = coeffs.shape[1]
+    n = coeffs.shape[-1]
     npow2 = 1 << max(1, (n - 1).bit_length())
     c = pad_to(coeffs, npow2)
     y = eval_coeffs(coeffs, z)
     evals = dntt.ntt_lf(c)
     xs = dntt.domain(npow2).wpow_lf(coeffs.device)          # (L, n)
+    q = dntt.intt_lf(_linear_quotient_evals(evals, xs, z, y))
+    return q[..., : max(1, n - 1)], y
+
+
+def _linear_quotient_evals(evals, xs, z, y):
+    """(evals - y) / (xs - z) on the domain points xs (L, n); evals
+    (L, ..., n), z and y (L, ..., 1)."""
+    xs = xs.reshape((xs.shape[0],) + (1,) * (evals.dim() - 2) + (xs.shape[1],))
     dinv = lf.batch_inv(lf.sub(xs, z))
-    q_evals = lf.mul(lf.sub(evals, y), dinv)
-    q = dntt.intt_lf(q_evals)
-    return q[:, : max(1, n - 1)], y
+    return lf.mul(lf.sub(evals, y), dinv)
 
 
 @functools.lru_cache(maxsize=None)

@@ -56,27 +56,32 @@ def build_tables(coo, key_of, gather_of, out_size: int, m_pad: int, device=None)
 
 
 def _segscan_add_lf(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
-    """Segmented inclusive prefix sum over Fr, limbs-first (L, m)."""
-    m = vals.shape[1]
+    """Segmented inclusive prefix sum over Fr, limbs-first (L, ..., m); the
+    segments (flags, (m,)) are shared by every batch row."""
+    m = vals.shape[-1]
     v, f = vals, flags
     o = 1
     while o < m:
-        s = lf.add(v[:, o:], v[:, : m - o])
-        tail = torch.where(f[None, o:], v[:, o:], s)
-        v = torch.cat([v[:, :o], tail], dim=1)
+        s = lf.add(v[..., o:], v[..., : m - o])
+        tail = torch.where(f[o:], v[..., o:], s)
+        v = torch.cat([v[..., :o], tail], dim=-1)
         f = torch.cat([f[:o], f[o:] | f[: m - o]])
         o *= 2
     return v
 
 
 def spmv_lf(tables: SparseTables, x: torch.Tensor) -> torch.Tensor:
-    """Limbs-first spmv: x (L, n) lazy -> y (L, out_size) lazy, with
-    y[out_idx] = sum over the segment of vals * x[gather_idx]."""
-    prod = lf.mul(tables.vals.T, x[:, tables.gather_idx])
+    """Limbs-first spmv: x (L, ..., n) lazy -> y (L, ..., out_size) lazy, with
+    y[out_idx] = sum over the segment of vals * x[gather_idx]. Batch axes
+    between limbs and lanes (k witnesses against one matrix) share the
+    tables."""
+    vals = tables.vals.T
+    vals = vals.reshape((vals.shape[0],) + (1,) * (x.dim() - 2) + (vals.shape[1],))
+    prod = lf.mul(vals, x[..., tables.gather_idx])
     seg = _segscan_add_lf(prod, tables.flags)
     size = tables.out_size
     idx = torch.where(tables.ends, tables.out_idx, size)
-    out = torch.zeros((size + 1, lf.L), dtype=STORE, device=x.device)
-    # every non-end lane lands on the dummy row `size`, which is dropped
-    out[idx] = seg.T
-    return out[:size].T.contiguous()
+    out = torch.zeros(x.shape[:-1] + (size + 1,), dtype=STORE, device=x.device)
+    # every non-end lane lands on the dummy lane `size`, which is dropped
+    out[..., idx] = seg
+    return out[..., :size].contiguous()

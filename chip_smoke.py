@@ -27,11 +27,19 @@ Phases, each printing one JSON line with its seconds:
             at the ragged widths 1, 22, 129 and 1001, with P + P, P + (-P),
             identities (z as 0 and as p), the (0, 0) sentinel, invalid lanes
             and lazy representatives planted among random lanes; at 22 lanes
-            also real curve points against the host group law
+            also real curve points against the host group law. fq_mul_canon,
+            fq_mul_chain12 and fr_mul each against its plain version, equal
+            bit for bit (raw limbs, no normalize), at 2^16 elements and at
+            1, 129 and 1001, with 0, 1, p - 1, p, 2p - 1 and the largest
+            operand (2q - 1, 4r - 1) planted in every pairing
   msm       msm_host at 2^12 points in both MSM modes (batch-affine and
             projective) and the device entry msm(scalars, points, c=4)
-            against the host Pippenger oracle; NTT round trip and one coset
-            NTT at 2^17 against host evaluation
+            against the host Pippenger oracle; msm_batch_host with k = 4
+            over the first 32768 SRS powers in both modes (the four points
+            equal msm_fast_host's one by one and are equal between the
+            modes; seconds and launches of the batch and of four single
+            MSMs); NTT round trip and one coset NTT at 2^17 against host
+            evaluation
   matntt    ntt_lf, intt_lf, coset_ntt_lf, coset_intt_lf at 2^14, 2^15 and
             2^17 through MatNTT and through the butterfly network: equal
             after normalize, and equal to host evaluation at a few indices;
@@ -46,6 +54,21 @@ Phases, each printing one JSON line with its seconds:
             (MSM_AFFINE_MODE "0"), counts set to 0 before and read after: it
             must verify, give the same bytes, and launch the g1 kernels and
             none of the batch-affine ones
+  batch     the batch prover at full size: k = 4 token.aleo/transfer
+            transitions with four different amounts (n = 8192, m = 32768)
+            through prove_batch with one seeded rng, in the batch-affine mode
+            and again in the projective mode, counts set to 0 before each
+            and read after: every proof verifies with its own public inputs,
+            proof 0 is rejected under proof 1's, the two modes give equal
+            bytes proof by proof; seconds for the batch and per proof, stage
+            timers, launches of every kernel, the number of batched
+            transforms by path, peak device memory; then k = 8 once in the
+            mode that was faster at k = 4 (its first and last proof are
+            verified)
+  tools     the two stand-alone scripts that run the product kernels,
+            tools/torch_proto_mul.py and tools/torch_microbench_fr_mul.py,
+            at their default 2^16 elements, counts set to 0 before and read
+            after
 
 It fails (non-zero exit, no result line) without CUDA, if the build fails,
 or if any phase fails. The last line of its output is
@@ -59,7 +82,9 @@ float32 rate of 67 TFLOP/s = 33.5e12 multiply-adds per second, since an SM
 has half as many int32 lanes as float32 lanes.
 """
 
+import importlib.util
 import json
+import os
 import random
 import subprocess
 import sys
@@ -80,6 +105,7 @@ from aleo_tpu_torch.fields import fmat_kernels as fk
 from aleo_tpu_torch.fields import fr_lf as lf
 from aleo_tpu_torch.fields import limb_kernels as lk
 from aleo_tpu_torch.fields import limbs
+from aleo_tpu_torch.fields import proto_mul as pm
 from aleo_tpu_torch.msm import msm as msm_mod
 from aleo_tpu_torch.ntt import matntt
 from aleo_tpu_torch.ntt import ntt as dntt
@@ -91,6 +117,7 @@ from aleo_tpu_torch.program.values import Record, Value
 from aleo_tpu_torch.reference import polynomial as rpoly
 from aleo_tpu_torch.reference.curve import G1
 from aleo_tpu_torch.reference.msm import msm_pippenger_jac
+from aleo_tpu_torch.snark import batch as batch_mod
 from aleo_tpu_torch.snark import pipeline
 from aleo_tpu_torch.snark.serialize import proof_to_bytes
 from aleo_tpu_torch.snark.verifier import verify
@@ -115,10 +142,15 @@ M_FERMAT = ga.FERMAT_W                  # 128
 # one MatNTT stage of a 2^17 transform: 76 raw columns of 131072 lanes
 M_STAGE = 1 << 17
 REDUCE_MADS = 38 * 39 // 2 + 38 * 38    # the N' band (triangular) and the p band
-PHASES = {"kernels", "msm", "matntt", "micro", "transfer"}
+MADS_PER_FR_PRODUCT = 2 * 2 * 8 * 8      # the same two passes over 8 words
+M_PROTO = 1 << 16                       # the tools' default element count
+MSM_BATCH_N, MSM_BATCH_K = 32768, 4     # a transfer proof's largest commits
+BATCH_K, BATCH_K_ONCE = 4, 8
+PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "tools"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
 _G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
+_PM = "aleo_tpu_torch/csrc/proto_mul.cu"
 KERNELS = {         # name -> (source, the TPU kernel it replaces)
     "fq_prepare": (_G1, "aleo_tpu/curves/g1_affine.py:240"),
     "fq_mul": (_G1, "aleo_tpu/curves/g1_affine.py:300"),
@@ -132,9 +164,13 @@ KERNELS = {         # name -> (source, the TPU kernel it replaces)
     "g1_add_sel": (_G1F, "aleo_tpu/curves/g1_fused.py:243"),
     "g1_add_sel_proj": (_G1F, "aleo_tpu/curves/g1_fused.py:302"),
     "g1_normalize": (_G1F, "aleo_tpu/curves/g1_fused.py:376"),
+    "fq_mul_canon": (_PM, "tools/proto_pallas_mul.py:122"),
+    "fq_mul_chain12": (_PM, "tools/proto_pallas_mul.py:153"),
+    "fr_mul": (_PM, "tools/microbench_fr_mul.py:86"),
 }
 AFFINE_KERNELS = ("fq_prepare", "fq_mul", "fq_fermat", "fq_apply")
 PROJECTIVE_KERNELS = ("g1_double", "g1_add", "g1_add_sel", "g1_add_sel_proj")
+PROTO_KERNELS = ("fq_mul_canon", "fq_mul_chain12", "fr_mul")
 
 MICRO = """
 program micro.aleo;
@@ -199,10 +235,11 @@ def reset_launches():
     ga.reset_launches()
     fk.reset_launches()
     gf.reset_launches()
+    pm.reset_launches()
 
 
 def all_launches():
-    return {**ga.LAUNCHES, **fk.LAUNCHES, **gf.LAUNCHES}
+    return {**ga.LAUNCHES, **fk.LAUNCHES, **gf.LAUNCHES, **pm.LAUNCHES}
 
 
 def copies(args, n):
@@ -364,6 +401,7 @@ def phase_kernels():
 
     products = _fmat_kernels(res)
     _g1_kernels(res)
+    _proto_kernels(res)
 
     for name, r in res.items():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -529,6 +567,63 @@ def _g1_kernels(res):
     res["g1_add_sel_proj"]["valid_lanes"] = n_valid
 
 
+def _proto_operands(rng, m, p, bound, n_limbs):
+    """Two (n_limbs, m) operand tensors of values < bound, with 0, 1, p - 1, in every pairing (where m has room)."""
+    edge = [0, 1, p - 1, p, 2 * p - 1, bound - 1]
+    a = [rng.randrange(bound) for _ in range(m)]
+    b = [rng.randrange(bound) for _ in range(m)]
+    for i, (u, v) in enumerate([(u, v) for u in edge for v in edge][:m]):
+        a[i], b[i] = u, v
+    as_t = lambda v: limbs.to_tensor(limbs.ints_to_limbs(v, n_limbs).T, DEV)
+    return as_t(a), as_t(b), (a, b)
+
+
+def _proto_kernels(res):
+    """fq_mul_canon, fq_mul_chain12, fr_mul against their plain versions: raw
+    limbs equal bit for bit, no normalize; a few lanes against host
+    integers; and their times."""
+    rng = random.Random(SEED + 12)
+    m = M_PROTO
+    FRL = params.FR_LIMBS
+    specs = {   # name -> (wrapper, plain, modulus, operand bound, limbs, mads per element)
+        "fq_mul_canon": (pm.fq_mul_canon, pm.fq_mul_canon_plain, Q, 2 * Q, L, MADS_PER_PRODUCT),
+        "fq_mul_chain12": (pm.fq_mul_chain12, pm.fq_mul_chain12_plain, Q, 2 * Q, L,
+                           12 * MADS_PER_PRODUCT),
+        "fr_mul": (pm.fr_mul, pm.fr_mul_plain, R, 4 * R, FRL, MADS_PER_FR_PRODUCT),
+    }
+    for name, (fn, plain, p, bound, nl, mads) in specs.items():
+        err = 0
+        for w in (m, 1, 129, 1001):
+            a, b, (ai, bi) = _proto_operands(rng, w, p, bound, nl)
+            got, want = fn(a, b), plain(a, b)
+            torch.cuda.synchronize()
+            assert got.shape == (nl, w) and got.dtype == torch.int32
+            err = max(err, int_err(got, want))
+            # against host integers on the first lanes (the planted ones)
+            radix = 1 << (16 * nl)
+            head = limbs.limbs_to_ints(limbs.to_numpy(got[:, :40]).T)
+            if name == "fr_mul":        # the lazy integer (ab + m r) / R itself
+                n_prime = (-pow(p, -1, radix)) % radix
+                ints = [(x * y + (x * y * n_prime % radix) * p) >> (16 * nl)
+                        for x, y in zip(ai[:40], bi[:40])]
+            else:
+                r_inv = pow(radix, -1, p)
+                x, y = ai[:40], bi[:40]
+                for _ in range(1 if name == "fq_mul_canon" else pm.CHAIN_ROUNDS):
+                    x, y = ([u * v * r_inv % p for u, v in zip(x, y)],
+                            [v * u * r_inv % p for u, v in zip(x, y)])
+                ints = x
+            assert head == ints, f"{name} disagrees with host integers at width {w}"
+        a, b, _ = _proto_operands(rng, m, p, bound, nl)
+        n_sets = -(-60_000_000 // (3 * 4 * nl * m))         # more than the L2 in all
+        res[name] = {
+            "max_abs_err": err, "lanes": m,
+            "ms": kernel_ms(lambda t: fn(*t), copies((a, b), n_sets)),
+            "plain_ms": cuda_ms(lambda: plain(a, b), 3),
+            "bytes": 3 * 4 * nl * m, "mads": mads * m,
+        }
+
+
 def random_fr(n, seed):
     """(16, n) raw 16-bit limbs of uniform values below 0x12AB * 2^240 < p,
     made on the card from a seed."""
@@ -646,7 +741,49 @@ def _fmat_kernels(res):
             "bmm_shape": [list(tbank.shape), list(xb.shape)]}
 
 
-def phase_msm():
+def _msm_batch(srs):
+    """msm_batch_host with k = 4 over the first 32768 SRS powers in both MSM
+    modes, against msm_fast_host one by one."""
+    n, k = MSM_BATCH_N, MSM_BATCH_K
+    pw = srs.powers
+    table = msm_mod.make_table(g1mod.G1Points(pw.x[:n], pw.y[:n], pw.z[:n]))
+    raw = random_fr(k * n, SEED + 5).T.reshape(k, n, params.FR_LIMBS).contiguous()
+    out, points = {}, {}
+    assert config.MSM_AFFINE_MODE == "1"
+    try:
+        for mode, name in (("1", "affine"), ("0", "projective")):
+            config.MSM_AFFINE_MODE = mode
+            # each twice: a first call at a size pays the allocator's growth
+            batch = lambda: msm_mod.msm_batch_host(raw, table)
+            four = lambda: [msm_mod.msm_fast_host(raw[p], table) for p in range(k)]
+            reset_launches()
+            got, batch_first_s = _timed(batch)
+            batch_launches = all_launches()
+            reset_launches()
+            singles, singles_first_s = _timed(four)
+            singles_launches = all_launches()
+            _, batch_s = _timed(batch)
+            _, singles_s = _timed(four)
+            assert got == singles, f"msm_batch_host ({name}) disagrees with msm_fast_host"
+            assert all(pt is not None for pt in got)
+            points[name] = got
+            out[name] = {"batch_seconds": batch_s, "batch_first_seconds": batch_first_s,
+                         "batch_launches": batch_launches,
+                         "four_single_seconds": singles_s,
+                         "four_single_first_seconds": singles_first_s,
+                         "four_single_launches": singles_launches}
+    finally:
+        config.MSM_AFFINE_MODE = "1"
+    assert points["affine"] == points["projective"], "the modes disagree on a batch MSM"
+    for kname in AFFINE_KERNELS:
+        assert out["affine"]["batch_launches"][kname] > 0, kname
+        assert out["projective"]["batch_launches"][kname] == 0, kname
+    for kname in PROJECTIVE_KERNELS + ("g1_normalize",):
+        assert out["projective"]["batch_launches"][kname] > 0, kname
+    return {"points": n, "k": k, "c": msm_mod.auto_c(n), **out}
+
+
+def phase_msm(srs):
     t0 = time.time()
     rng = random.Random(SEED + 1)
     n = 1 << 12
@@ -723,7 +860,8 @@ def phase_msm():
         assert ev_h[k] == rpoly.evaluate(coeffs, x), f"NTT wrong at {i}"
         assert cev_h[k] == rpoly.evaluate(coeffs, shift * x % R), f"coset NTT wrong at {i}"
     say({"phase": "msm", "msm_points": 1 << 12, "msm_seconds": msm_s,
-         "msm_launches": launches, "msm_modes": modes, "ntt_lanes": n, "ntt_seconds": ntt_s,
+         "msm_launches": launches, "msm_modes": modes, "msm_batch": _msm_batch(srs),
+         "ntt_lanes": n, "ntt_seconds": ntt_s,
          "coset_ntt_seconds": coset_s, "seconds": round(time.time() - t0, 3)})
 
 
@@ -847,16 +985,23 @@ def phase_micro(srs):
          "verify_seconds": time.time() - t1, "seconds": round(time.time() - t0, 3)})
 
 
+SENDER, RECEIVER = 123456789, 987654321
+
+
+def transfer_inputs(amount):
+    rec = Record(
+        "token.aleo", "token", owner=SENDER, gates=0,
+        entries={"amount": Value("u64", 500)}, nonce=7,
+    )
+    return [rec, Value("address", RECEIVER), Value("u64", amount)]
+
+
 def phase_transfer(srs):
     """The main path, at the full size of token.aleo/transfer."""
     t0 = time.time()
     reg = load_example("simple_token")
-    sender, receiver = 123456789, 987654321
-    rec = Record(
-        "token.aleo", "token", owner=sender, gates=0,
-        entries={"amount": Value("u64", 500)}, nonce=7,
-    )
-    inputs = [rec, Value("address", receiver), Value("u64", 120)]
+    sender = SENDER
+    inputs = transfer_inputs(120)
 
     reset_launches()                      # every kernel's count to 0
     prof.reset()
@@ -935,7 +1080,120 @@ def phase_transfer(srs):
     # each kernel's count on the path that runs it: the batch-affine main path
     # (keys, proof, verification), and the projective proof for the kernels
     # of the projective pipeline
-    return {**launches, **{k: proj_launches[k] for k in PROJECTIVE_KERNELS}}
+    path = {**launches, **{k: proj_launches[k] for k in PROJECTIVE_KERNELS}}
+    return path, keys, {"affine": prove_s, "projective": proj_prove_s}
+
+
+def _prove_batch_timed(keys, cs_list):
+    """One prove_batch with every count set to 0 just before and read just
+    after -> (proofs, seconds, launches, batched transforms, stage timers,
+    peak device bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    batch_mod.reset_ntt_calls()
+    prof.reset()
+    prof.enable()
+    t1 = time.time()
+    proofs = batch_mod.prove_batch(keys.index, cs_list, rng=random.Random(SEED))
+    torch.cuda.synchronize()
+    seconds = time.time() - t1
+    launches = all_launches()
+    stages = prof.report()
+    prof.enable(False)
+    return (proofs, seconds, launches, dict(batch_mod.NTT_CALLS), stages,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_batch(srs, keys, single_s):
+    """The batch prover at the full size of token.aleo/transfer: k = 4
+    transitions with different amounts in both MSM modes, then k = 8 once."""
+    t0 = time.time()
+    reg = load_example("simple_token")
+    if keys is None:
+        keys = pipeline.synthesize_keys(reg, "token.aleo", "transfer", srs=srs, cache=False)
+    assert (keys.index.n, keys.index.m) == (8192, 32768), (keys.index.n, keys.index.m)
+    syns = [pipeline.synthesize_and_check(keys, reg, transfer_inputs(100 + i), SENDER,
+                                          lambda: 11) for i in range(BATCH_K_ONCE)]
+    assert len({tuple(s.public_inputs) for s in syns}) == BATCH_K_ONCE
+    cs4 = [s.cs for s in syns[:BATCH_K]]
+    dims = (keys.index.n, keys.index.m, keys.index.ell)
+    runs = {}
+    assert config.MSM_AFFINE_MODE == "1"
+    try:
+        for mode, name in (("1", "affine"), ("0", "projective")):
+            config.MSM_AFFINE_MODE = mode
+            proofs, seconds, launches, ntts, stages, peak = _prove_batch_timed(keys, cs4)
+            runs[name] = {"proofs": proofs, "seconds": seconds,
+                          "seconds_per_proof": seconds / BATCH_K, "launches": launches,
+                          "batched_transforms": ntts, "stages": stages,
+                          "peak_device_bytes": peak}
+            mine = AFFINE_KERNELS if mode == "1" else PROJECTIVE_KERNELS
+            other = PROJECTIVE_KERNELS if mode == "1" else AFFINE_KERNELS
+            for kname in mine + ("g1_normalize", "fmat_reduce"):
+                assert launches[kname] > 0, f"{kname} was never launched in the {name} batch"
+            for kname in other:
+                assert launches[kname] == 0, f"{kname} was launched in the {name} batch"
+            assert ntts["matntt"] > 0, "no batched transform ran as MatNTT"
+        faster = min(runs, key=lambda nm: runs[nm]["seconds"])
+        config.MSM_AFFINE_MODE = "1" if faster == "affine" else "0"
+        proofs8, seconds8, launches8, ntts8, _, peak8 = _prove_batch_timed(
+            keys, [s.cs for s in syns])
+    finally:
+        config.MSM_AFFINE_MODE = "1"
+
+    t1 = time.time()
+    for s, proof in zip(syns, runs["affine"]["proofs"]):
+        assert verify(keys.vk, s.public_inputs, proof), "a batch proof does not verify"
+    assert not verify(keys.vk, syns[1].public_inputs, runs["affine"]["proofs"][0]), \
+        "proof 0 was accepted under proof 1's public inputs"
+    as_bytes = lambda proofs: [proof_to_bytes(p, *dims) for p in proofs]
+    assert as_bytes(runs["projective"]["proofs"]) == as_bytes(runs["affine"]["proofs"]), \
+        "the projective batch's bytes differ from the affine batch's"
+    assert len(set(as_bytes(runs["affine"]["proofs"]))) == BATCH_K
+    # k = 8 under the same seed: its first masks are drawn for eight proofs,
+    # so these are other proofs than the four above; the first and the last
+    # are verified (a verification is seconds of host pairing work)
+    for i in (0, BATCH_K_ONCE - 1):
+        assert verify(keys.vk, syns[i].public_inputs, proofs8[i]), \
+            f"proof {i} of the k = 8 batch does not verify"
+    verify_s = time.time() - t1
+    for r in runs.values():
+        del r["proofs"]
+    say({"phase": "batch", "k": BATCH_K, "n": keys.index.n, "m": keys.index.m,
+         "single_prove_seconds": single_s, **runs, "bytes_equal": True,
+         "k8": {"k": BATCH_K_ONCE, "mode": faster, "seconds": seconds8,
+                "seconds_per_proof": seconds8 / BATCH_K_ONCE, "launches": launches8,
+                "batched_transforms": ntts8, "peak_device_bytes": peak8},
+         "verify_seconds": verify_s, "proofs_verified": BATCH_K + 2,
+         "seconds": round(time.time() - t0, 3)})
+    # each kernel's count on the batch path that runs it
+    return {**runs["affine"]["launches"],
+            **{k: runs["projective"]["launches"][k] for k in PROJECTIVE_KERNELS}}
+
+
+def _load_tool(name):
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(here, "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_tools():
+    """The path that runs the three product kernels: the two stand-alone
+    scripts, in this process, at their default sizes."""
+    t0 = time.time()
+    reset_launches()
+    assert _load_tool("torch_proto_mul").main([]) == 0
+    assert _load_tool("torch_microbench_fr_mul").main([]) == 0
+    torch.cuda.synchronize()
+    launches = all_launches()
+    for kname in PROTO_KERNELS:
+        assert launches[kname] > 0, f"{kname} was never launched by its script"
+    say({"phase": "tools", "launches": {k: launches[k] for k in PROTO_KERNELS},
+         "seconds": round(time.time() - t0, 3)})
+    return launches
 
 
 def main(argv):
@@ -945,27 +1203,35 @@ def main(argv):
         sys.exit(f"chip_smoke: unknown phase {sorted(want - PHASES)}")
     card = phase_device()
     kres = phase_kernels() if "kernels" in want else None
-    if "msm" in want:
-        phase_msm()
-    if "matntt" in want:
-        phase_matntt()
-    launches = None
-    if want & {"micro", "transfer"}:
+    srs = None
+    if want & {"msm", "micro", "transfer", "batch"}:
         t0 = time.time()
-        # one SRS for both circuits: max(2n + 1, m) + 1 powers for n = 8192,
-        # m = 32768 (micro needs fewer and takes the same one)
-        deg = 32769 if "transfer" in want else 8193
+        # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
+        # (micro needs fewer and takes the same one)
+        deg = 32769 if want & {"msm", "transfer", "batch"} else 8193
         srs = Srs.generate(deg, device=DEV)
         say({"phase": "srs", "powers": deg + 1, "seconds": round(time.time() - t0, 3)})
-        if "micro" in want:
-            phase_micro(srs)
-        if "transfer" in want:
-            launches = phase_transfer(srs)
-    if kres is not None and launches is not None:
+    if "msm" in want:
+        phase_msm(srs)
+    if "matntt" in want:
+        phase_matntt()
+    if "micro" in want:
+        phase_micro(srs)
+    launches, keys, single_s = None, None, None
+    if "transfer" in want:
+        launches, keys, single_s = phase_transfer(srs)
+    batch_launches = phase_batch(srs, keys, single_s) if "batch" in want else None
+    tool_launches = phase_tools() if "tools" in want else None
+    if None not in (kres, launches, batch_launches, tool_launches):
+        # `launches` is a kernel's count on the main path that runs it: the
+        # transfer proof (K1-K12), the two scripts (the product kernels);
+        # `launches_batch` its count in the k = 4 batch
+        on_path = {**launches, **{k: tool_launches[k] for k in PROTO_KERNELS}}
         say({"kernels": [
             {"name": name, "route": "cuda",
              "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-             "launches": launches[name], "max_abs_err": r["max_abs_err"],
+             "launches": on_path[name], "launches_batch": batch_launches[name],
+             "max_abs_err": r["max_abs_err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None}
             for name, r in kres.items()

@@ -3,6 +3,7 @@ anything of `aleo_tpu`, and its entry points default to the GPU and raise
 without one."""
 
 import ast
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "aleo_tpu")
 
 def _port_files():
     files = sorted((ROOT / "aleo_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py")) + sorted((ROOT / "tools").glob("torch_*.py"))
+    return files + scripts + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path):
@@ -38,7 +40,8 @@ def test_file_imports_nothing_of_jax_or_the_jax_package(path):
 def test_importing_the_port_does_not_load_jax():
     mods = [
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
-        for p in _port_files() if p.name not in ("__init__.py", "chip_smoke.py")
+        for p in _port_files()
+        if p.name != "__init__.py" and p.is_relative_to(ROOT / "aleo_tpu_torch")
     ]
     code = (
         "import sys, importlib\n"
@@ -63,8 +66,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from aleo_tpu_torch.msm import msm
     from aleo_tpu_torch.pcs.srs import Srs
     from aleo_tpu_torch.program.interpreter import Registry
-    from aleo_tpu_torch.snark import indexer, pipeline
+    from aleo_tpu_torch.snark import batch, indexer, pipeline
     from aleo_tpu_torch.snark.r1cs import ConstraintSystem
+
+    def tool(name):
+        # the stand-alone scripts around fields/proto_mul.py: its wrappers
+        # take tensors and create none, the scripts are what asks for a device
+        spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs on it")
@@ -81,6 +92,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: Srs.generate(4),
         lambda: indexer.index_r1cs(ConstraintSystem()),
         lambda: pipeline.synthesize_keys(Registry(), "x.aleo", "f"),
+        lambda: batch._const_b([1, 2]),
+        lambda: tool("torch_proto_mul").main(["--log2n", "6"]),
+        lambda: tool("torch_microbench_fr_mul").main(["6"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -208,3 +208,17 @@ def test_entry_points_dispatch_to_matntt_above_the_threshold(monkeypatch):
     # below the threshold nothing reaches MatNTT
     tntt.ntt_lf(t[:, :128].contiguous())
     assert len(calls) == 5
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_one_stage_plan_with_a_single_lane(n, monkeypatch):
+    """A transform of one stage hands `dft_apply` a single lane, whose row
+    stride is not the plain one: the product must not read it."""
+    rng = random.Random(31 + n)
+    _, t = _encode([rng.randrange(R) for _ in range(n)])
+    want = tlf.normalize(tntt.ntt_lf(t))                 # the butterfly network
+    assert len(tmat.plan(n, False, 1).dims) == 1
+    monkeypatch.setattr(config, "MATNTT_MIN_N", 4)
+    assert torch.equal(tlf.normalize(tntt.ntt_lf(t)), want)
+    assert torch.equal(tlf.normalize(tntt.intt_lf(tntt.coset_intt_lf(
+        tntt.coset_ntt_lf(tntt.ntt_lf(t), SHIFT), SHIFT))), tlf.normalize(t))
