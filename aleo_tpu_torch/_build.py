@@ -89,10 +89,12 @@ def library() -> ctypes.CDLL:
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.fq_mul_launch.argtypes = [P, L, P, L, P, L, I, P]
+    lib.fq_mul_launch.argtypes = [P, P, P, I, P]
     lib.fq_prepare_launch.argtypes = [P] * 11 + [I, P]
     lib.fq_apply_launch.argtypes = [P] * 12 + [I, P]
     lib.fq_fermat_launch.argtypes = [P, P, I, P]
+    lib.fq_inv_up_launch.argtypes = [P, P, I, P]
+    lib.fq_inv_down_launch.argtypes = [P, P, P, I, P]
     lib.fmat_reduce_launch.argtypes = [P, P, I, P, P]
     lib.fmat_carry2d_launch.argtypes = [P, P, I, I, P]
     lib.fmat_carry3d_launch.argtypes = [P, P, I, I, I, P]
@@ -105,7 +107,8 @@ def library() -> ctypes.CDLL:
     lib.fq_mul_chain12_launch.argtypes = [P] * 3 + [I, P]
     lib.fr_mul_launch.argtypes = [P] * 3 + [I, P]
     for fn in (lib.fq_mul_launch, lib.fq_prepare_launch, lib.fq_apply_launch,
-               lib.fq_fermat_launch, lib.fmat_reduce_launch,
+               lib.fq_fermat_launch, lib.fq_inv_up_launch, lib.fq_inv_down_launch,
+               lib.fmat_reduce_launch,
                lib.fmat_carry2d_launch, lib.fmat_carry3d_launch,
                lib.g1_double_launch, lib.g1_add_launch, lib.g1_add_sel_launch,
                lib.g1_add_sel_proj_launch, lib.g1_normalize_launch,

@@ -40,13 +40,23 @@ static __constant__ uint32_t FQ_P2[FQ_WORDS] = {
 static __constant__ uint32_t FQ_ONE[FQ_WORDS] = {
     0xffffff68u, 0x02cdffffu, 0x7fffffb1u, 0x51409f83u, 0x8a7d3ff2u, 0x9f7db3a9u,
     0x6e7c6305u, 0x7b4e97b7u, 0x803c84e8u, 0x4cf495bfu, 0xe2fdf49au, 0x008d6661u};
-// p - 2 (the Fermat inversion exponent), 377 bits
-static __constant__ uint32_t FQ_EXP[FQ_WORDS] = {
-    0xffffffffu, 0x8508bfffu, 0x30000000u, 0x170b5d44u, 0xba094800u, 0x1ef3622fu,
-    0x00f5138fu, 0x1a22d9f3u, 0x6ca1493bu, 0xc63b05c0u, 0x17c510eau, 0x01ae3a46u};
-#define FQ_EXP_BITS 377
 // -p^-1 mod 2^32
 #define FQ_NP0 0xffffffffu
+
+// The safegcd inversion (fq_inv.cuh) works on 13 signed limbs of 30 bits
+// (390 bits >= the 379 a signed value below 2^378 needs).
+#define FQ_S30_LIMBS 13
+// p in 30-bit limbs
+static __constant__ int32_t FQ_P_S30[FQ_S30_LIMBS] = {
+    0x00000001, 0x14230000, 0x00000008, 0x02d7510c, 0x09480017, 0x0d88bee8, 0x1138f1ef,
+    0x367cc03d, 0x093b1a22, 0x1701b285, 0x0eac63b0, 0x1185f144, 0x0001ae3a};
+// R^2 mod p = 2^768 mod p in 30-bit limbs: the inversion's start value of e,
+// so that a Montgomery input aR comes out as R / a, the Montgomery form of 1/a
+static __constant__ int32_t FQ_R2_S30[FQ_S30_LIMBS] = {
+    0x1400cd22, 0x1e19a1b2, 0x00431b1b, 0x0a7f2aac, 0x16b46d03, 0x17c4458b, 0x1c3ac22a,
+    0x1f40e09f, 0x0bf9bfdf, 0x0bc105e4, 0x388837e9, 0x32c7a452, 0x00006dfc};
+// p^-1 mod 2^30 (p = 1 mod 2^46, so it is 1)
+#define FQ_PINV30 0x00000001u
 
 // ---- memory <-> registers ---------------------------------------------------
 

@@ -1,13 +1,14 @@
 // Batch-affine G1 accumulation kernels for Hopper (sm_90a).
 //
-// Four kernels, one thread per lane, every Fq value as 12 32-bit words in
-// registers (fq.cuh). They replace the four Pallas kernels of the JAX
-// package's curves/g1_affine.py:
+// Six kernels, every Fq value as 12 32-bit words in registers (fq.cuh). They
+// replace the four Pallas kernels of the JAX package's curves/g1_affine.py:
 //
-//   fq_prepare  <- _build_prepare (_prepare_body)
-//   fq_mul      <- _build_mul     (lk.mont_mul)
-//   fq_fermat   <- _build_fermat  (_fermat_body)
-//   fq_apply    <- _build_apply   (_apply_body)
+//   fq_prepare   <- _build_prepare (_prepare_body)
+//   fq_mul       <- _build_mul     (lk.mont_mul)
+//   fq_inv_up    <- _build_mul, as the inversion tree's levels going up
+//   fq_inv_down  <- _build_mul, as the inversion tree's levels going down
+//   fq_fermat    <- _build_fermat  (_fermat_body), by safegcd (fq_inv.cuh)
+//   fq_apply     <- _build_apply   (_apply_body)
 //
 // Each computes what its TPU kernel computes; the TPU bodies' Kogge-Stone
 // carries, row-shift grouping, constant blocks and tile padding are matters
@@ -21,12 +22,14 @@
 // returns cudaGetLastError().
 //
 // Registers per thread (nvcc 12.8, -O3, sm_90a, -Xptxas -v; no kernel spills):
-// fq_prepare 96, fq_apply 80, fq_fermat 64, fq_mul 54.
+// fq_prepare 96, fq_apply 80, fq_mul 54, fq_fermat 76, fq_inv_up 80 and
+// fq_inv_down 168 (both with 24 KB of shared memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fq.cuh"
+#include "fq_inv.cuh"
 
 #define THREADS 128
 
@@ -37,26 +40,25 @@
 #define CASE_TAKE 3     // result = +-P (acc was identity)
 
 // ---------------------------------------------------------------------------
-// fq_mul: elementwise Montgomery product (the inversion tree's workhorse).
+// fq_mul: elementwise Montgomery product (to_affine's; the JAX package's
+// inversion tree ran on it, which fq_inv_up and fq_inv_down now do).
 //
 // Bound: a lane moves 3 x 24 int32 words (288 B) and does 2 x 144 = 288
 // 32x32->64 multiply-adds plus carries. At the card's rates the bytes take
 // about 2.5 times as long as the multiply-adds, so the kernel is bound by
 // the memory traffic of the one-16-bit-limb-per-word layout; the design keeps every
-// access coalesced (limbs first) and everything else in registers. Row
-// strides are arguments so the halves of the inversion tree are multiplied
-// in place, without copies.
+// access coalesced (limbs first) and everything else in registers.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
-fq_mul_kernel(const int* __restrict__ a, long lda, const int* __restrict__ b, long ldb,
-              int* __restrict__ out, long ldo, int M) {
+fq_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
+              int M) {
     long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
     if (m >= M) return;
     uint32_t x[FQ_WORDS], y[FQ_WORDS];
-    fq_load(x, a, lda, m);
-    fq_load(y, b, ldb, m);
+    fq_load(x, a, M, m);
+    fq_load(y, b, M, m);
     fq_mul(x, x, y);
-    fq_store(out, ldo, m, x);
+    fq_store(out, M, m, x);
 }
 
 // ---------------------------------------------------------------------------
@@ -180,32 +182,174 @@ fq_apply_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
 }
 
 // ---------------------------------------------------------------------------
-// fq_fermat: x^(p-2), Montgomery in and out (mont(aR)^(p-2) chains give
-// a^(p-2) R, the Montgomery form of the inverse). Binary square-and-multiply
-// from the top bit: 376 squarings and 178 products (one per set bit), uniform over
-// the threads (the exponent is a constant), no table, no spills.
+// The batch inversion, Montgomery's trick over tiles (curves/g1_affine.py,
+// batch_inv_lf): fq_inv_up multiplies each tile of INV_TILE consecutive lanes
+// to one root, fq_fermat inverts the <= 128 roots, fq_inv_down pushes each
+// root's inverse back down its tile. Three launches where the JAX package
+// ran one product kernel (_build_mul) per tree level up and one per level
+// down. Past 128 tiles (more than 131072 lanes) fq_inv_up is applied to the
+// roots again, and fq_inv_down once more on the way back.
 //
-// Called once per batched add on the <= 128 lanes at the root of the
-// inversion tree: a single block whose threads each run a dependent chain
-// of 554 products. It is bound by latency, not by bytes or by the card's
-// multiply rate; its time is reported as it is.
+// A tile is one block of INV_THREADS threads, four lanes each: thread t holds
+// lanes t, t + 256, t + 512, t + 768 (every load and store coalesced). The
+// tree pairs the two halves of a level (parent i = child i * child i + w), as
+// the JAX package's tree does: the first two levels in registers (a_lo = x0
+// x2, a_hi = x1 x3, b = a_lo a_hi), the other eight in shared memory, where
+// the level of width w lies at nodes [w, 2w), each node word-major so that
+// neighbouring threads touch neighbouring banks (24 KB). Lanes past M read
+// as Montgomery one, so a ragged tile needs no padded copy and a tile of
+// padding alone has the root one.
+//
+// fq_inv_down rebuilds the tile's tree instead of reading one that
+// fq_inv_up wrote: d is read twice and nothing is written in between. The
+// stored tree would cost about 1.5 values per lane of writes and reads (some
+// 140 B a lane, 4 us at 50688 lanes) to spare ten dependent products.
+//
+// Bounds at 50688 lanes (a round of the 32768-point MSM): fq_inv_up reads d
+// (96 B a lane, 1.5 us) and does about one product a lane (1.7 us);
+// fq_inv_down reads d, writes the inverses (2.9 us) and does two products a
+// lane (3.5 us). Both are in fact bound by latency: a tile's product is a
+// chain of ten dependent products (twenty in fq_inv_down, rebuild and
+// pushdown), and the upper levels run on a few threads of each block.
+// ---------------------------------------------------------------------------
+#define INV_THREADS 256
+#define INV_TILE (4 * INV_THREADS)
+
+typedef uint32_t InvTree[FQ_WORDS][2 * INV_THREADS];
+
+__device__ __forceinline__ void tree_put(InvTree& tree, int k, const uint32_t v[FQ_WORDS]) {
+#pragma unroll
+    for (int i = 0; i < FQ_WORDS; i++) tree[i][k] = v[i];
+}
+
+__device__ __forceinline__ void tree_get(uint32_t v[FQ_WORDS], const InvTree& tree, int k) {
+#pragma unroll
+    for (int i = 0; i < FQ_WORDS; i++) v[i] = tree[i][k];
+}
+
+// this thread's four lanes of the block's tile; Montgomery one past M
+__device__ __forceinline__ void tile_load(uint32_t x[4][FQ_WORDS], const int* __restrict__ dp,
+                                          int M) {
+    const long base = (long)blockIdx.x * INV_TILE + threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+        const long m = base + j * INV_THREADS;
+        if (m < M)
+            fq_load(x[j], dp, M, m);
+        else
+            fq_set_const(x[j], FQ_ONE);
+    }
+}
+
+// The tile's product tree: a_lo, a_hi in registers, the threads' products b
+// at nodes [256, 512) and the tile's product at node 1.
+__device__ __forceinline__ void tile_tree_up(InvTree& tree, const uint32_t x[4][FQ_WORDS],
+                                             uint32_t alo[FQ_WORDS], uint32_t ahi[FQ_WORDS]) {
+    const int t = threadIdx.x;
+    uint32_t b[FQ_WORDS];
+    fq_mul(alo, x[0], x[2]);
+    fq_mul(ahi, x[1], x[3]);
+    fq_mul(b, alo, ahi);
+    tree_put(tree, INV_THREADS + t, b);
+    __syncthreads();
+#pragma unroll 1
+    for (int w = INV_THREADS / 2; w >= 1; w >>= 1) {
+        if (t < w) {
+            uint32_t lo[FQ_WORDS], hi[FQ_WORDS];
+            tree_get(lo, tree, 2 * w + t);
+            tree_get(hi, tree, 3 * w + t);
+            fq_mul(lo, lo, hi);
+            tree_put(tree, w + t, lo);
+        }
+        __syncthreads();
+    }
+}
+
+// fq_inv_up: d (24, M) -> roots (24, ceil(M / INV_TILE)), each tile's product
+__global__ void __launch_bounds__(INV_THREADS)
+fq_inv_up_kernel(const int* __restrict__ dp, int* __restrict__ rootp, int M) {
+    __shared__ InvTree tree;
+    uint32_t x[4][FQ_WORDS], alo[FQ_WORDS], ahi[FQ_WORDS];
+    tile_load(x, dp, M);
+    tile_tree_up(tree, x, alo, ahi);
+    if (threadIdx.x == 0) {
+        uint32_t r[FQ_WORDS];
+        tree_get(r, tree, 1);
+        fq_store(rootp, gridDim.x, blockIdx.x, r);
+    }
+}
+
+// fq_inv_down: d (24, M) and the inverses of its tile roots (24, ceil(M /
+// INV_TILE)) -> 1/d (24, M). Going down, the children of a node with the
+// inverse iv are iv * sibling: [lo, hi] <- [iv hi, iv lo].
+__global__ void __launch_bounds__(INV_THREADS)
+fq_inv_down_kernel(const int* __restrict__ dp, const int* __restrict__ rinvp,
+                   int* __restrict__ outp, int M) {
+    __shared__ InvTree tree;
+    const int t = threadIdx.x;
+    uint32_t x[4][FQ_WORDS], alo[FQ_WORDS], ahi[FQ_WORDS];
+    tile_load(x, dp, M);
+    tile_tree_up(tree, x, alo, ahi);
+    if (t == 0) {
+        uint32_t r[FQ_WORDS];
+        fq_load(r, rinvp, gridDim.x, blockIdx.x);
+        tree_put(tree, 1, r);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int w = 1; w < INV_THREADS; w <<= 1) {
+        if (t < w) {
+            uint32_t iv[FQ_WORDS], lo[FQ_WORDS], hi[FQ_WORDS], nlo[FQ_WORDS];
+            tree_get(iv, tree, w + t);
+            tree_get(lo, tree, 2 * w + t);
+            tree_get(hi, tree, 3 * w + t);
+            fq_mul(nlo, iv, hi);
+            fq_mul(hi, iv, lo);
+            tree_put(tree, 2 * w + t, nlo);
+            tree_put(tree, 3 * w + t, hi);
+        }
+        __syncthreads();
+    }
+    uint32_t ib[FQ_WORDS], ia[FQ_WORDS], o[FQ_WORDS];
+    const long base = (long)blockIdx.x * INV_TILE + t;
+    tree_get(ib, tree, INV_THREADS + t);            // 1 / b
+    fq_mul(ia, ib, ahi);                            // 1 / a_lo
+    fq_mul(o, ia, x[2]);
+    if (base < M) fq_store(outp, M, base, o);
+    fq_mul(o, ia, x[0]);
+    if (base + 2 * INV_THREADS < M) fq_store(outp, M, base + 2 * INV_THREADS, o);
+    fq_mul(ia, ib, alo);                            // 1 / a_hi
+    fq_mul(o, ia, x[3]);
+    if (base + INV_THREADS < M) fq_store(outp, M, base + INV_THREADS, o);
+    fq_mul(o, ia, x[1]);
+    if (base + 3 * INV_THREADS < M) fq_store(outp, M, base + 3 * INV_THREADS, o);
+}
+
+// ---------------------------------------------------------------------------
+// fq_fermat: the inverse at the root of the tree, Montgomery in and out,
+// one thread per lane (<= 128 lanes in the tree; any width is accepted).
+// The name is the JAX package's (_build_fermat, a 4-bit-window ladder of
+// ~475 products); the body is the safegcd of fq_inv.cuh: 37 batches of 30
+// divsteps, each batch a 2x2 matrix applied to f, g, d, e (about 130 wide
+// multiply-adds). A ladder is one chain of ~554 dependent 12-word products,
+// bound by their latency on a single block; this chain is about 37 x 30
+// short divsteps plus 37 limb updates whose multiply-adds are independent
+// of one another.
+//
+// Bound: the yardstick stays the ladder's work (554 products a lane), the
+// reference's for this function. The safegcd itself does 37 x 130 wide
+// multiply-adds a lane (9620 instructions, counting each as two); its SASS
+// has 1203 instructions a batch, 44,984 a lane in all
+// (scripts/torch_sass_count.py).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
 fq_fermat_kernel(const int* __restrict__ xp, int* __restrict__ outp, int M) {
     long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
     if (m >= M) return;
-    uint32_t x[FQ_WORDS], acc[FQ_WORDS], t[FQ_WORDS];
+    uint32_t x[FQ_WORDS], r[FQ_WORDS];
     fq_load(x, xp, M, m);
-    fq_copy(acc, x);                            // top bit of the exponent
-#pragma unroll 1
-    for (int bit = FQ_EXP_BITS - 2; bit >= 0; bit--) {
-        fq_sq(acc, acc);
-        if ((FQ_EXP[bit >> 5] >> (bit & 31)) & 1u) {
-            fq_mul(t, acc, x);
-            fq_copy(acc, t);
-        }
-    }
-    fq_store(outp, M, m, acc);
+    fq_inv_safegcd(r, x);
+    fq_store(outp, M, m, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -214,10 +358,9 @@ fq_fermat_kernel(const int* __restrict__ xp, int* __restrict__ outp, int M) {
 
 static inline unsigned blocks_for(int M) { return (unsigned)((M + THREADS - 1) / THREADS); }
 
-extern "C" int fq_mul_launch(const int* a, long lda, const int* b, long ldb, int* out,
-                             long ldo, int M, void* stream) {
+extern "C" int fq_mul_launch(const int* a, const int* b, int* out, int M, void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    fq_mul_kernel<<<blocks_for(M), THREADS, 0, (cudaStream_t)stream>>>(a, lda, b, ldb, out, ldo, M);
+    fq_mul_kernel<<<blocks_for(M), THREADS, 0, (cudaStream_t)stream>>>(a, b, out, M);
     return (int)cudaGetLastError();
 }
 
@@ -244,5 +387,20 @@ extern "C" int fq_apply_launch(const int* x1, const int* y1, const int* inf1, co
 extern "C" int fq_fermat_launch(const int* x, int* out, int M, void* stream) {
     if (M <= 0) return (int)cudaSuccess;
     fq_fermat_kernel<<<blocks_for(M), THREADS, 0, (cudaStream_t)stream>>>(x, out, M);
+    return (int)cudaGetLastError();
+}
+
+static inline unsigned tiles_for(int M) { return (unsigned)((M + INV_TILE - 1) / INV_TILE); }
+
+extern "C" int fq_inv_up_launch(const int* d, int* roots, int M, void* stream) {
+    if (M <= 0) return (int)cudaSuccess;
+    fq_inv_up_kernel<<<tiles_for(M), INV_THREADS, 0, (cudaStream_t)stream>>>(d, roots, M);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fq_inv_down_launch(const int* d, const int* rinv, int* out, int M,
+                                  void* stream) {
+    if (M <= 0) return (int)cudaSuccess;
+    fq_inv_down_kernel<<<tiles_for(M), INV_THREADS, 0, (cudaStream_t)stream>>>(d, rinv, out, M);
     return (int)cudaGetLastError();
 }

@@ -7,9 +7,9 @@ Counterpart of the JAX package's `curves/g1_affine.py`. The affine chord law
     y3  = lam * (x1 - x3) - y1
 
 costs 3 muls once the denominator's inverse is known, and the inverses of a
-whole lane grid are amortized with Montgomery's batch-inversion trick: a
-pairwise product tree down to <= 128 lanes, one Fermat ladder at the root,
-and a pushdown.
+whole lane grid are amortized with Montgomery's batch-inversion trick: the
+product of each tile of INV_TILE lanes, one inversion of the <= 128 tile
+products at the root, and a pushdown through each tile.
 
 The affine law is incomplete; completeness is restored by a case code per
 lane (no data-dependent control flow):
@@ -27,12 +27,14 @@ lazy (< 2p) differences by testing both representatives {0, p}.
 Accumulators are `G1AF(x, y, inf)`: (L, M) int32 16-bit Montgomery limb
 coordinates (lazy < 2p) plus a (1, M) identity-flag row.
 
-Four steps are CUDA kernels (csrc/g1_affine.cu), each behind a wrapper here:
-`fq_prepare`, `fq_mul`, `fq_fermat`, `fq_apply`. A wrapper given CUDA tensors
+Six steps are CUDA kernels (csrc/g1_affine.cu), each behind a wrapper here:
+`fq_prepare`, `fq_inv_up`, `fq_fermat`, `fq_inv_down`, `fq_apply`, and
+`fq_mul` (to_affine's elementwise product). A wrapper given CUDA tensors
 launches its kernel or raises; given CPU tensors it takes the plain PyTorch
-version beside it (`_prepare_plain`, `_mul_plain`, `_fermat_plain`,
-`_apply_plain`), which is also what the kernels are held against on the
-card. Every launch adds one to `LAUNCHES[name]`.
+version beside it (`_prepare_plain`, `_inv_up_plain`, `_fermat_plain`,
+`_inv_down_plain`, `_apply_plain`, `_mul_plain`), which is also what the
+kernels are held against on the card. Every launch adds one to
+`LAUNCHES[name]`.
 """
 
 from __future__ import annotations
@@ -46,7 +48,10 @@ from ..fields import limb_kernels as lk
 from ..fields import limbs
 from ..fields.limbs import STORE
 
-FERMAT_W = 128      # product-tree root width (one Fermat ladder launch)
+FERMAT_W = 128      # most tile products inverted at the root (one fq_fermat block)
+INV_TILE = 1024     # lanes of one inversion tile (one fq_inv_up / fq_inv_down block)
+S30_LIMBS = 13      # signed 30-bit limbs of fq_fermat's safegcd (csrc/fq_inv.cuh)
+SAFEGCD_BATCHES = 37    # its fixed count of batches of 30 divsteps
 
 # case codes (int32 rows)
 CASE_KEEP = 0       # result = acc (invalid lane / P identity / both identity)
@@ -56,7 +61,8 @@ CASE_TAKE = 3       # result = +-P (acc was identity)
 
 # kernel launches since the counts were last set to 0 (one per launch, and
 # nowhere else)
-LAUNCHES = {"fq_prepare": 0, "fq_mul": 0, "fq_fermat": 0, "fq_apply": 0}
+LAUNCHES = {"fq_prepare": 0, "fq_mul": 0, "fq_inv_up": 0, "fq_fermat": 0,
+            "fq_inv_down": 0, "fq_apply": 0}
 
 
 def reset_launches() -> None:
@@ -94,15 +100,6 @@ def identity_af(m: int, device=None) -> G1AF:
 def _one_mont(device) -> torch.Tensor:
     """(L, 1) Montgomery one on `device`."""
     return _fq().consts(device)["one"].to(STORE)
-
-
-def _pad_one(a: torch.Tensor, width: int) -> torch.Tensor:
-    """Pad a coordinate array with Montgomery-one columns (inversion-safe)."""
-    m = a.shape[1]
-    if m == width:
-        return a
-    pad = _one_mont(a.device).expand(a.shape[0], width - m)
-    return torch.cat([a, pad], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -157,13 +154,49 @@ def _apply_plain(x1, y1, inf1, x2, y2, sign, case, num, inv):
 
 
 def _fermat_plain(x):
-    """x^(Q-2), Montgomery in and out. The function is the modular inverse,
-    so it is taken on host integers (a ladder of 554 products in eager
-    PyTorch would cost seconds per call)."""
+    """The inverse, Montgomery in and out, canonical. The function is the
+    modular inverse, so it is taken on host integers."""
     Q, L = params.Q, _fq().L
     xs = limbs.from_mont_host(limbs.to_numpy(lk.normalize(_fq(), x)).T, Q)
     inv = [pow(v, -1, Q) for v in xs]
     return limbs.to_tensor(limbs.to_mont_host(inv, Q, L).T, x.device)
+
+
+def _tile_levels(d):
+    """The product trees of the tiles of (L, M) d, leaves first: level k is
+    (L, n_tiles, INV_TILE >> k), each node the product of the two halves of
+    the level below (parent i = child i * child i + w). Lanes past M are
+    Montgomery ones."""
+    L, m = d.shape
+    nt = -(-m // INV_TILE)
+    if nt * INV_TILE > m:
+        pad = _one_mont(d.device).expand(L, nt * INV_TILE - m)
+        d = torch.cat([d, pad], dim=1)
+    levels = [d.reshape(L, nt, INV_TILE)]
+    while levels[-1].shape[2] > 1:
+        cur = levels[-1]
+        half = cur.shape[2] // 2
+        levels.append(_mul_plain(cur[:, :, :half], cur[:, :, half:]))
+    return levels
+
+
+def _inv_up_plain(d):
+    """(L, M) -> (L, ceil(M / INV_TILE)): the product of each tile."""
+    return _tile_levels(d)[-1].reshape(d.shape[0], -1)
+
+
+def _inv_down_plain(d, rinv):
+    """(L, M) d and the inverses of its tile products (L, ceil(M / INV_TILE))
+    -> 1/d: down each tile, a node's inverse times the sibling is the
+    child's inverse ([lo, hi] <- [inv hi, inv lo])."""
+    levels = _tile_levels(d)
+    inv = rinv.reshape(d.shape[0], -1, 1)
+    for lv in reversed(levels[:-1]):
+        half = lv.shape[2] // 2
+        # both halves in one product: [inv | inv] * [hi | lo]
+        inv = _mul_plain(torch.cat([inv, inv], dim=2),
+                         torch.cat([lv[:, :, half:], lv[:, :, :half]], dim=2))
+    return inv.reshape(d.shape[0], -1)[:, : d.shape[1]]
 
 
 # ---------------------------------------------------------------------------
@@ -171,17 +204,14 @@ def _fermat_plain(x):
 # ---------------------------------------------------------------------------
 
 
-def _check(name, t, rows, m, strided=False):
+def _check(name, t, rows, m):
     if t.dtype != STORE or t.dim() != 2 or t.shape[0] != rows or t.shape[1] != m:
         raise ValueError(
             f"{name}: expected int32 ({rows}, {m}), got {t.dtype} {tuple(t.shape)}"
         )
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if strided:
-        if m > 1 and t.stride(1) != 1:
-            raise ValueError(f"{name}: lanes must be contiguous")
-    elif not t.is_contiguous():
+    if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
@@ -198,27 +228,16 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _ld(t):
-    return t.stride(0) if t.shape[1] > 1 else max(t.stride(0), 1)
-
-
-def fq_mul(a, b, out=None):
-    """Elementwise Fq Montgomery product, lazy < 2p. a, b, out: (24, M);
-    rows may be strided views (lanes contiguous)."""
+def fq_mul(a, b):
+    """Elementwise Fq Montgomery product, lazy < 2p. a, b: (24, M)."""
     if not a.is_cuda:
-        r = _mul_plain(a, b)
-        if out is None:
-            return r
-        out.copy_(r)
-        return out
+        return _mul_plain(a, b)
     L, m = _fq().L, a.shape[1]
-    if out is None:
-        out = torch.empty((L, m), dtype=STORE, device=a.device)
-    for nm, t in (("a", a), ("b", b), ("out", out)):
-        _check(f"fq_mul {nm}", t, L, m, strided=True)
+    for nm, t in (("a", a), ("b", b)):
+        _check(f"fq_mul {nm}", t, L, m)
+    out = torch.empty((L, m), dtype=STORE, device=a.device)
     rc = _build.library().fq_mul_launch(
-        a.data_ptr(), _ld(a), b.data_ptr(), _ld(b), out.data_ptr(), _ld(out),
-        m, _stream(),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, _stream()
     )
     _launched("fq_mul", rc)
     return out
@@ -269,8 +288,9 @@ def fq_apply(x1, y1, inf1, x2, y2, sign, case, num, inv):
 
 
 def fq_fermat(x):
-    """x^(Q-2) per lane, Montgomery in and out. x: (24, W), W <= FERMAT_W in
-    the inversion tree (any width is accepted)."""
+    """The inverse per lane, Montgomery in and out (canonical out; the
+    kernel's body is the safegcd of csrc/fq_inv.cuh). x: (24, W), W <=
+    FERMAT_W in the inversion tree (any width is accepted)."""
     if not x.is_cuda:
         return _fermat_plain(x)
     L, m = _fq().L, x.shape[1]
@@ -283,6 +303,35 @@ def fq_fermat(x):
     return out
 
 
+def fq_inv_up(d):
+    """(24, M) lazy Montgomery -> (24, ceil(M / INV_TILE)): the product of
+    each tile of INV_TILE consecutive lanes; see `_inv_up_plain`."""
+    if not d.is_cuda:
+        return _inv_up_plain(d)
+    L, m = _fq().L, d.shape[1]
+    _check("fq_inv_up d", d, L, m)
+    roots = torch.empty((L, -(-m // INV_TILE)), dtype=STORE, device=d.device)
+    rc = _build.library().fq_inv_up_launch(d.data_ptr(), roots.data_ptr(), m, _stream())
+    _launched("fq_inv_up", rc)
+    return roots
+
+
+def fq_inv_down(d, rinv):
+    """(24, M) d and the inverses of its tile products (24, ceil(M /
+    INV_TILE)) -> (24, M) 1/d; see `_inv_down_plain`."""
+    if not d.is_cuda:
+        return _inv_down_plain(d, rinv)
+    L, m = _fq().L, d.shape[1]
+    _check("fq_inv_down d", d, L, m)
+    _check("fq_inv_down rinv", rinv, L, -(-m // INV_TILE))
+    out = torch.empty((L, m), dtype=STORE, device=d.device)
+    rc = _build.library().fq_inv_down_launch(
+        d.data_ptr(), rinv.data_ptr(), out.data_ptr(), m, _stream()
+    )
+    _launched("fq_inv_down", rc)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # batch inversion
 # ---------------------------------------------------------------------------
@@ -291,36 +340,23 @@ def fq_fermat(x):
 def batch_inv_lf(d: torch.Tensor) -> torch.Tensor:
     """Elementwise modular inverse of (L, M) lazy Montgomery values.
 
-    Pairwise product tree to <= FERMAT_W lanes, one Fermat ladder at the
-    root, pushdown: ~3 muls per lane plus the amortized root ladder. All
-    lanes MUST be nonzero mod p (`fq_prepare` guarantees this with its case
-    analysis).
-
-    Half-split pairing (parent[i] = lo[i] * hi[i] with lo/hi the two
-    contiguous halves): every level multiplies two row-strided views, and
-    the pushdown writes the children's inverses straight into the halves of
-    one buffer ([lo_inv | hi_inv] = [parent_inv * hi | parent_inv * lo]).
-    Odd widths are padded with a one, never a zero.
+    Montgomery's trick over tiles: `fq_inv_up` takes the product of each
+    tile of INV_TILE lanes, `fq_fermat` inverts the tile products, and
+    `fq_inv_down` pushes each inverse back down its tile (~3 muls per lane
+    and one inversion per tile). Three launches up to FERMAT_W * INV_TILE
+    lanes, one at FERMAT_W lanes or fewer; past FERMAT_W tiles the tile
+    products are tiled again. All lanes MUST be nonzero mod p (`fq_prepare`
+    guarantees this with its case analysis).
     """
-    m = d.shape[1]
     levels = []
-    cur = d
+    cur = d.contiguous()
     while cur.shape[1] > FERMAT_W:
-        w = cur.shape[1]
-        if w % 2:
-            cur = _pad_one(cur, w + 1)
-        half = cur.shape[1] // 2
-        a, b = cur[:, :half], cur[:, half:]
-        levels.append((a, b))
-        cur = fq_mul(a, b)
-    inv = fq_fermat(cur.contiguous())
-    for a, b in reversed(levels):
-        half = a.shape[1]
-        nxt = torch.empty((d.shape[0], 2 * half), dtype=STORE, device=d.device)
-        fq_mul(inv[:, :half], b, out=nxt[:, :half])
-        fq_mul(inv[:, :half], a, out=nxt[:, half:])
-        inv = nxt
-    return inv[:, :m]
+        levels.append(cur)
+        cur = fq_inv_up(cur)
+    inv = fq_fermat(cur)
+    for lower in reversed(levels):
+        inv = fq_inv_down(lower, inv)
+    return inv
 
 
 # ---------------------------------------------------------------------------

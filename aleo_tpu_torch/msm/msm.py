@@ -21,7 +21,7 @@ lanes and streams points into them:
 Steps 4 and 5 exist twice, chosen by `config.MSM_AFFINE_MODE`:
 
   * batch-affine (the default): affine accumulators and one shared batch
-    inversion per add (`curves.g1_affine.madd`, four CUDA kernels); the
+    inversion per add (`curves.g1_affine.madd`, five CUDA kernels); the
     heaviest segments are split over spare lanes first. Functions `*_af`.
   * projective ("0"): complete projective adds, no inversion
     (`curves.g1_fused`: `add_sel_lf` in the rounds, `add_sel_proj_lf` in the

@@ -8,10 +8,16 @@ Phases, each printing one JSON line with its seconds:
 
   device    the card's name and power limit; builds the CUDA kernels from
             aleo_tpu_torch/csrc/ with nvcc
-  kernels   fq_prepare, fq_mul, fq_fermat, fq_apply each against its plain
-            PyTorch version on the card (exact equality after normalize) at
-            the lane grid of a 32768-point MSM, edge-case lanes planted among
-            random ones; then madd and batch_inv_lf whole. fmat_reduce,
+  kernels   fq_prepare, fq_mul, fq_apply each against its plain PyTorch
+            version on the card (exact equality after normalize) at the lane
+            grid of a 32768-point MSM, edge-case lanes planted among random
+            ones; fq_inv_up, fq_fermat (safegcd) and fq_inv_down, the batch
+            inversion's three kernels, against theirs at that grid, at 1,
+            129 and 1001 lanes and at the 180224 lanes of msm_batch_host
+            (two levels of tiles), with 1, 2, p - 1, p + 1, 2p - 1, powers of
+            two and R mod p planted; fq_fermat also at 50 and 128 lanes (the
+            tree's roots); then batch_inv_lf (its launches counted) and madd
+            whole against host inverses and the plain madd. fmat_reduce,
             fmat_carry2d and fmat_carry3d each against its plain version
             (exact equality of the int8 limbs) at the shapes of one stage of
             a 2^17 transform, on the columns of real products with the hard
@@ -34,7 +40,8 @@ Phases, each printing one JSON line with its seconds:
             operand (2q - 1, 4r - 1) planted in every pairing
   msm       msm_host at 2^12 points in both MSM modes (batch-affine and
             projective) and the device entry msm(scalars, points, c=4)
-            against the host Pippenger oracle; msm_batch_host with k = 4
+            against the host Pippenger oracle; g1.to_affine, the path of
+            fq_mul, counts set to 0 before and read after; msm_batch_host with k = 4
             over the first 32768 SRS powers in both modes (the four points
             equal msm_fast_host's one by one and are equal between the
             modes; seconds and launches of the batch and of four single
@@ -138,6 +145,11 @@ M_GRID = 22 * 2048 * 9 // 8             # 50688
 M_PROJ = 22 * 2048                      # 45056
 M_WINDOWS = 22                          # the end of the bucket reduction
 M_FERMAT = ga.FERMAT_W                  # 128
+M_ROOTS = -(-M_GRID // ga.INV_TILE)     # 50 tile products at the grid's root
+M_TWO_LEVELS = 4 * 22 * 2048            # 180224: msm_batch_host's grid at k = 4
+# fq_fermat's multiply-adds a lane (csrc/fq_inv.cuh): a batch's matrix times f, g (4
+# products a limb) and d, e with their multiples of p (6), 32x32->64 each
+SAFEGCD_MADS = ga.SAFEGCD_BATCHES * 2 * (4 + 6) * ga.S30_LIMBS
 
 # one MatNTT stage of a 2^17 transform: 76 raw columns of 131072 lanes
 M_STAGE = 1 << 17
@@ -154,6 +166,8 @@ _PM = "aleo_tpu_torch/csrc/proto_mul.cu"
 KERNELS = {         # name -> (source, the TPU kernel it replaces)
     "fq_prepare": (_G1, "aleo_tpu/curves/g1_affine.py:240"),
     "fq_mul": (_G1, "aleo_tpu/curves/g1_affine.py:300"),
+    "fq_inv_up": (_G1, "aleo_tpu/curves/g1_affine.py:300"),
+    "fq_inv_down": (_G1, "aleo_tpu/curves/g1_affine.py:300"),
     "fq_fermat": (_G1, "aleo_tpu/curves/g1_affine.py:319"),
     "fq_apply": (_G1, "aleo_tpu/curves/g1_affine.py:273"),
     "fmat_reduce": (_FMAT, "aleo_tpu/fields/fmat_pallas.py:114"),
@@ -168,7 +182,7 @@ KERNELS = {         # name -> (source, the TPU kernel it replaces)
     "fq_mul_chain12": (_PM, "tools/proto_pallas_mul.py:153"),
     "fr_mul": (_PM, "tools/microbench_fr_mul.py:86"),
 }
-AFFINE_KERNELS = ("fq_prepare", "fq_mul", "fq_fermat", "fq_apply")
+AFFINE_KERNELS = ("fq_prepare", "fq_inv_up", "fq_fermat", "fq_inv_down", "fq_apply")
 PROJECTIVE_KERNELS = ("g1_double", "g1_add", "g1_add_sel", "g1_add_sel_proj")
 PROTO_KERNELS = ("fq_mul_canon", "fq_mul_chain12", "fr_mul")
 
@@ -319,6 +333,91 @@ def _madd_plain(x1, y1, inf1, x2, y2, inf2, sign, valid):
     return ga._apply_plain(x1, y1, inf1, x2, y2, sign, case, num, ga._fermat_plain(d))
 
 
+RM = (1 << 384) % Q                     # Montgomery one
+INV_EDGE = [1, 2, Q - 1, Q + 1, 2 * Q - 1, RM, RM + Q] + [
+    1 << k for k in range((2 * Q).bit_length()) if 1 << k < 2 * Q]
+
+
+def _inv_inputs(rng, w):
+    """(L, w) lazy Montgomery values (< 2p, nonzero mod p), INV_EDGE planted
+    at the front."""
+    vals = [rng.randrange(1, 2 * Q) for _ in range(w)]
+    vals = [v if v % Q else 1 for v in vals]
+    vals[: len(INV_EDGE)] = INV_EDGE[:w]
+    return fq_tensor(vals)
+
+
+def _inversion_kernels(res, rng, dp, inv):
+    """fq_inv_up, fq_fermat, fq_inv_down against their plain versions (exact
+    after normalize) at the grid's width (the prepared denominators dp, with
+    INV_EDGE planted), at 1, 129, 1001 and M_TWO_LEVELS lanes; fq_fermat also
+    at the root widths 50 and 128; batch_inv_lf whole against host inverses,
+    with its launches counted; and the three kernels' times."""
+    m = dp.shape[1]
+    main = dp.clone()
+    main[:, : len(INV_EDGE)] = fq_tensor(INV_EDGE)
+    err = {"fq_inv_up": 0, "fq_fermat": 0, "fq_inv_down": 0}
+    raw = dict.fromkeys(err, True)      # equal before normalize too
+
+    def hold(name, got, want):
+        err[name] = max(err[name], same(got, want))
+        raw[name] = raw[name] and torch.equal(got, want)
+
+    calls = {}
+    for w in (m, 1, 129, 1001, M_TWO_LEVELS):
+        d = main if w == m else _inv_inputs(rng, w)
+        want = ga._fermat_plain(d)                  # host inverses
+        hold("fq_fermat", ga.fq_fermat(d), want)
+        roots = ga._inv_up_plain(d)
+        hold("fq_inv_up", ga.fq_inv_up(d), roots)
+        rinv = ga._fermat_plain(roots)
+        hold("fq_inv_down", ga.fq_inv_down(d, rinv), ga._inv_down_plain(d, rinv))
+        before = dict(ga.LAUNCHES)
+        binv = ga.batch_inv_lf(d)
+        calls[w] = {k: ga.LAUNCHES[k] - before[k] for k in before if ga.LAUNCHES[k] > before[k]}
+        assert same(binv, want) == 0, f"batch_inv_lf disagrees at width {w}"
+        levels = 0 if w <= ga.FERMAT_W else 1 if w <= ga.FERMAT_W * ga.INV_TILE else 2
+        assert calls[w] == {"fq_fermat": 1, **({"fq_inv_up": levels, "fq_inv_down": levels}
+                                               if levels else {})}, (w, calls[w])
+    roots = {}
+    for w in (M_ROOTS, M_FERMAT):
+        roots[w] = _inv_inputs(rng, w)
+        hold("fq_fermat", ga.fq_fermat(roots[w]), ga._fermat_plain(roots[w]))
+    torch.cuda.synchronize()
+
+    nt = -(-m // ga.INV_TILE)
+    rinv = ga._fermat_plain(ga._inv_up_plain(main))
+    exp_products = (Q - 2).bit_length() - 1 + bin(Q - 2).count("1") - 1
+    f128 = roots[M_FERMAT]
+    res["fq_inv_up"] = {
+        "max_abs_err": err["fq_inv_up"], "lanes": m, "tiles": nt,
+        "ms": kernel_ms(lambda a: ga.fq_inv_up(*a), copies((main,), 12)),
+        "plain_ms": cuda_ms(lambda: ga._inv_up_plain(main), 3),
+        "bytes": 4 * L * (m + nt), "mads": MADS_PER_PRODUCT * (m - nt),
+    }
+    res["fq_inv_down"] = {
+        "max_abs_err": err["fq_inv_down"], "lanes": m, "tiles": nt,
+        "ms": kernel_ms(lambda a: ga.fq_inv_down(*a), copies((main, rinv), 12)),
+        "plain_ms": cuda_ms(lambda: ga._inv_down_plain(main, rinv), 3),
+        "bytes": 4 * L * (2 * m + nt), "mads": 3 * MADS_PER_PRODUCT * (m - nt),
+    }
+    res["fq_fermat"] = {
+        "max_abs_err": err["fq_fermat"], "lanes": M_FERMAT,
+        "ms": kernel_ms(lambda a: ga.fq_fermat(*a), copies((f128,), 2)),
+        f"ms_{M_ROOTS}_lanes": kernel_ms(lambda a: ga.fq_fermat(*a), copies((roots[M_ROOTS],), 2)),
+        "plain_ms": cuda_ms(lambda: ga._fermat_plain(f128), 3),
+        "bytes": 2 * 4 * L * M_FERMAT, "mads": SAFEGCD_MADS * M_FERMAT,
+        "safegcd_mads_per_lane": SAFEGCD_MADS,
+        # the work of a Fermat ladder, the reference's algorithm for this function
+        "ladder_bound_ms": exp_products * MADS_PER_PRODUCT * M_FERMAT / INT32_MADS_PER_S * 1e3,
+    }
+    d2 = _inv_inputs(rng, M_TWO_LEVELS)
+    for name, eq in raw.items():
+        res[name]["raw_limbs_equal"] = eq
+    res["fq_inv_up"]["batch_inv_lf_launches"] = {str(w): c for w, c in calls.items()}
+    res["fq_inv_up"][f"batch_inv_lf_ms_{M_TWO_LEVELS}"] = cuda_ms(lambda: ga.batch_inv_lf(d2), 5)
+
+
 def phase_kernels():
     t0 = time.time()
     rng = random.Random(SEED)
@@ -341,12 +440,8 @@ def phase_kernels():
         "bytes": (6 * 4 * L + 5 * 4) * m, "mads": MADS_PER_PRODUCT * m,
     }
 
-    # fq_mul (also on row-strided halves, as the inversion tree calls it)
-    prod = ga.fq_mul(x1, y2)
-    err = same(prod, ga._mul_plain(x1, y2))
-    half = m // 2
-    err = max(err, same(ga.fq_mul(x1[:, :half], x1[:, half:]),
-                        ga._mul_plain(x1[:, :half], x1[:, half:])))
+    # fq_mul, the elementwise product of to_affine
+    err = same(ga.fq_mul(x1, y2), ga._mul_plain(x1, y2))
     res["fq_mul"] = {
         "max_abs_err": err, "lanes": m,
         "ms": kernel_ms(lambda a: ga.fq_mul(*a), copies((x1, y2), 8)),
@@ -354,25 +449,10 @@ def phase_kernels():
         "bytes": 3 * 4 * L * m, "mads": MADS_PER_PRODUCT * m,
     }
 
-    # fq_fermat at the root width: random lazy lanes, 1, p + 1, p - 1, 2p - 1
-    vals = [rng.randrange(1, 2 * Q) for _ in range(M_FERMAT)]
-    vals = [v if v % Q else 1 for v in vals]
-    vals[:4] = [1, Q + 1, Q - 1, 2 * Q - 1]
-    fx = fq_tensor(vals)
-    finv = ga.fq_fermat(fx)
-    err = same(finv, ga._fermat_plain(fx))
-    err = max(err, same(ga.fq_mul(finv, fx), ga._one_mont(DEV).expand(L, M_FERMAT)))
-    exp_products = (Q - 2).bit_length() - 1 + bin(Q - 2).count("1") - 1
-    res["fq_fermat"] = {
-        "max_abs_err": err, "lanes": M_FERMAT,
-        "ms": kernel_ms(lambda a: ga.fq_fermat(*a), copies((fx,), 2)),
-        "plain_ms": cuda_ms(lambda: ga._fermat_plain(fx), 3),
-        "bytes": 2 * 4 * L * M_FERMAT,
-        "mads": exp_products * MADS_PER_PRODUCT * M_FERMAT,
-    }
+    inv = ga._fermat_plain(dp)
+    _inversion_kernels(res, rng, dp, inv)
 
     # fq_apply, fed the true inverses of the prepared denominators
-    inv = ga._fermat_plain(dp)
     ox, oy, oinf = ga.fq_apply(x1, y1, inf1, x2, y2, sign, casep, nump, inv)
     px, py, pinf = ga._apply_plain(x1, y1, inf1, x2, y2, sign, casep, nump, inv)
     torch.cuda.synchronize()
@@ -385,10 +465,7 @@ def phase_kernels():
         "bytes": (8 * 4 * L + 4 * 4) * m, "mads": 3 * MADS_PER_PRODUCT * m,
     }
 
-    # batch_inv_lf and madd whole (odd widths exercise the padding with one)
-    for w in (m, 1001, 129, 1):
-        binv = ga.batch_inv_lf(dp[:, :w].contiguous())
-        assert same(binv, inv[:, :w]) == 0, f"batch_inv_lf disagrees at width {w}"
+    # madd whole, against the plain versions and against the plain madd
     acc = ga.G1AF(x1, y1, inf1)
     got = ga.madd(acc, x2, y2, inf2, sign, valid)
     assert same(got.x, px) == 0 and same(got.y, py) == 0
@@ -778,6 +855,7 @@ def _msm_batch(srs):
     for kname in AFFINE_KERNELS:
         assert out["affine"]["batch_launches"][kname] > 0, kname
         assert out["projective"]["batch_launches"][kname] == 0, kname
+    assert out["affine"]["batch_launches"]["fq_mul"] == 0, "fq_mul ran in msm_batch_host"
     for kname in PROJECTIVE_KERNELS + ("g1_normalize",):
         assert out["projective"]["batch_launches"][kname] > 0, kname
     return {"points": n, "k": k, "c": msm_mod.auto_c(n), **out}
@@ -821,6 +899,8 @@ def phase_msm(srs):
         assert modes["affine"]["msm_host_launches"][k] > 0
         assert modes["projective"]["msm_host_launches"][k] == 0
         assert modes["projective"]["msm_c4_launches"][k] == 0
+    for mode in modes.values():
+        assert mode["msm_host_launches"]["fq_mul"] == 0, "fq_mul ran in an MSM"
     for k in ("g1_add", "g1_add_sel", "g1_normalize"):
         assert modes["projective"]["msm_host_launches"][k] > 0, k
     for k in ("g1_double", "g1_add", "g1_add_sel", "g1_normalize"):
@@ -830,8 +910,12 @@ def phase_msm(srs):
     two = g1mod.G1Points(*(a[:2] for a in enc))
     kp = g1mod.scale(g1mod.scalar_bits(k, 32), two)
     assert g1mod.decode_points(kp) == [G1.mul(k, p) for p in pts[:2]], "g1.scale"
-    aff = g1mod.to_affine(g1mod.select(torch.tensor([True, False], device=DEV),
-                                       kp, g1mod.neg(kp)))
+    sel = g1mod.select(torch.tensor([True, False], device=DEV), kp, g1mod.neg(kp))
+    reset_launches()                # the path of fq_mul
+    aff = g1mod.to_affine(sel)
+    torch.cuda.synchronize()
+    to_affine_launches = {k: v for k, v in all_launches().items() if v}
+    assert to_affine_launches.get("fq_mul", 0) > 0, "to_affine did not launch fq_mul"
     assert g1mod.decode_points(aff) == [G1.mul(k, pts[0]), G1.neg(G1.mul(k, pts[1]))]
     one = g1mod.identity((2,), device=DEV).y
     assert torch.equal(aff.z, one) and not g1mod.is_identity(aff).any(), "g1.to_affine"
@@ -860,9 +944,11 @@ def phase_msm(srs):
         assert ev_h[k] == rpoly.evaluate(coeffs, x), f"NTT wrong at {i}"
         assert cev_h[k] == rpoly.evaluate(coeffs, shift * x % R), f"coset NTT wrong at {i}"
     say({"phase": "msm", "msm_points": 1 << 12, "msm_seconds": msm_s,
-         "msm_launches": launches, "msm_modes": modes, "msm_batch": _msm_batch(srs),
+         "msm_launches": launches, "msm_modes": modes,
+         "to_affine_launches": to_affine_launches, "msm_batch": _msm_batch(srs),
          "ntt_lanes": n, "ntt_seconds": ntt_s,
          "coset_ntt_seconds": coset_s, "seconds": round(time.time() - t0, 3)})
+    return to_affine_launches
 
 
 def _timed(fn):
@@ -1036,6 +1122,8 @@ def phase_transfer(srs):
     # configuration (phase matntt drives it) and stay at 0 here
     for k in AFFINE_KERNELS + ("g1_normalize", "fmat_reduce"):
         assert proof_launches[k] > 0, f"{k} was never launched during the proof"
+    # the inversion tree runs on its own kernels: fq_mul belongs to to_affine
+    assert proof_launches["fq_mul"] == 0, "fq_mul was launched during the proof"
 
     # the same proof through the projective MSM: same keys, inputs and
     # randomness, so the same commitments and the same bytes
@@ -1132,7 +1220,7 @@ def phase_batch(srs, keys, single_s):
             other = PROJECTIVE_KERNELS if mode == "1" else AFFINE_KERNELS
             for kname in mine + ("g1_normalize", "fmat_reduce"):
                 assert launches[kname] > 0, f"{kname} was never launched in the {name} batch"
-            for kname in other:
+            for kname in other + ("fq_mul",):
                 assert launches[kname] == 0, f"{kname} was launched in the {name} batch"
             assert ntts["matntt"] > 0, "no batched transform ran as MatNTT"
         faster = min(runs, key=lambda nm: runs[nm]["seconds"])
@@ -1211,8 +1299,9 @@ def main(argv):
         deg = 32769 if want & {"msm", "transfer", "batch"} else 8193
         srs = Srs.generate(deg, device=DEV)
         say({"phase": "srs", "powers": deg + 1, "seconds": round(time.time() - t0, 3)})
+    to_affine_launches = None
     if "msm" in want:
-        phase_msm(srs)
+        to_affine_launches = phase_msm(srs)
     if "matntt" in want:
         phase_matntt()
     if "micro" in want:
@@ -1222,11 +1311,13 @@ def main(argv):
         launches, keys, single_s = phase_transfer(srs)
     batch_launches = phase_batch(srs, keys, single_s) if "batch" in want else None
     tool_launches = phase_tools() if "tools" in want else None
-    if None not in (kres, launches, batch_launches, tool_launches):
+    if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches):
         # `launches` is a kernel's count on the main path that runs it: the
-        # transfer proof (K1-K12), the two scripts (the product kernels);
-        # `launches_batch` its count in the k = 4 batch
-        on_path = {**launches, **{k: tool_launches[k] for k in PROTO_KERNELS}}
+        # transfer proof (K1-K12 and the inversion tree), to_affine (fq_mul),
+        # the two scripts (the product kernels); `launches_batch` its count
+        # in the k = 4 batch
+        on_path = {**launches, "fq_mul": to_affine_launches["fq_mul"],
+                   **{k: tool_launches[k] for k in PROTO_KERNELS}}
         say({"kernels": [
             {"name": name, "route": "cuda",
              "source": KERNELS[name][0], "replaces": KERNELS[name][1],

@@ -58,8 +58,8 @@ function bump:
 
 
 PATTERNS = ("fmat_reduce", "fmat_carry2d", "fmat_carry3d", "fq_prepare", "fq_mul",
-            "fq_fermat", "fq_apply", "g1_double", "g1_add_kernel", "g1_add_sel_kernel",
-            "g1_add_sel_proj", "g1_normalize", "gemm")
+            "fq_inv_up", "fq_fermat", "fq_inv_down", "fq_apply", "g1_double",
+            "g1_add_kernel", "g1_add_sel_kernel", "g1_add_sel_proj", "g1_normalize", "gemm")
 NTT_ENTRIES = ("ntt_lf", "intt_lf", "coset_ntt_lf", "coset_intt_lf")
 
 

@@ -126,16 +126,44 @@ def test_lazy_representatives_are_recognised():
     assert tga.decode_af(r) == [None]
 
 
-@pytest.mark.parametrize("width", [1, 127, 128, 129, 1000])
-def test_batch_inv_lf_matches_jax(width):
+# the lazy Montgomery inputs planted at the front of each width: 1, 2, p - 1,
+# p + 1, 2p - 1, R mod p (Montgomery one) and its lazy form, 2^377
+_INV_EDGE = [1, 2, Q - 1, Q + 1, 2 * Q - 1, (1 << 384) % Q, (1 << 384) % Q + Q, 1 << 377]
+
+
+_INV_WIDTHS = [1, 2, 127, 128, 129, 1000, 1001, tga.INV_TILE, tga.INV_TILE + 1]
+
+
+def _inv_inputs(width):
+    """(24, width) Montgomery limbs of seeded values, _INV_EDGE planted."""
     rng = random.Random(width)
-    vals = [rng.randrange(1, Q) for _ in range(width)]
-    d = _mont_lf(vals)
+    d = _mont_lf([rng.randrange(1, Q) for _ in range(width)])
+    edge = np.asarray(limbs.ints_to_limbs(_INV_EDGE[:width], L).T, dtype=np.int64)
+    d[:, : edge.shape[1]] = edge
+    return d
+
+
+@pytest.fixture(scope="module")
+def jax_inverses():
+    """The JAX package's inverses of every width's inputs, from one call over
+    all widths side by side (the inversion is lane by lane; one call
+    compiles once)."""
+    ds = [_inv_inputs(w) for w in _INV_WIDTHS]
+    ji = np.asarray(jga.batch_inv_lf(_j(np.concatenate(ds, axis=1)))).astype(np.int64)
+    cut = np.cumsum([0] + _INV_WIDTHS)
+    return {w: ji[:, cut[k] : cut[k + 1]] for k, w in enumerate(_INV_WIDTHS)}
+
+
+@pytest.mark.parametrize("width", _INV_WIDTHS)
+def test_batch_inv_lf_matches_jax(width, jax_inverses):
+    """Widths around the root's 128 lanes and the tile's INV_TILE lanes."""
+    d = _inv_inputs(width)
     ti = lk.normalize(lk.get_fq(), tga.batch_inv_lf(_t(d)))
-    ji = jga.batch_inv_lf(_j(d))
     assert ti.shape == (L, width)
-    assert np.array_equal(ti.numpy().astype(np.int64), np.asarray(ji).astype(np.int64))
-    assert limbs.from_mont_host(ti.numpy().T, Q) == [pow(v, -1, Q) for v in vals]
+    assert np.array_equal(ti.numpy().astype(np.int64), jax_inverses[width])
+    r2 = (1 << 768) % Q
+    want = [pow(x, -1, Q) * r2 % Q for x in limbs.limbs_to_ints(d.T)]
+    assert limbs.limbs_to_ints(ti.numpy().T) == want
 
 
 def test_batch_inv_lf_takes_lazy_inputs():
@@ -193,10 +221,27 @@ def test_cuda_constants_match_params():
         assert len(ws) == 12
         return sum(w << (32 * i) for i, w in enumerate(ws))
 
+    def s30(name):
+        n = int(re.search(r"#define FQ_S30_LIMBS (\d+)", src).group(1))
+        body = re.search(name + r"\[FQ_S30_LIMBS\] = \{(.*?)\};", src, re.S).group(1)
+        ls = [int(w, 16) for w in re.findall(r"0x[0-9a-f]+", body)]
+        assert len(ls) == n == tga.S30_LIMBS
+        assert all(0 <= x < 1 << 30 for x in ls)
+        return sum(x << (30 * i) for i, x in enumerate(ls))
+
     assert words("FQ_P") == Q
     assert words("FQ_P2") == 2 * Q
     assert words("FQ_ONE") == (1 << 384) % Q
-    assert words("FQ_EXP") == Q - 2
-    assert int(re.search(r"#define FQ_EXP_BITS (\d+)", src).group(1)) == (Q - 2).bit_length()
+    assert s30("FQ_P_S30") == Q
+    assert s30("FQ_R2_S30") == (1 << 768) % Q
+    pinv = int(re.search(r"#define FQ_PINV30 (0x[0-9a-f]+)u", src).group(1), 16)
+    assert pinv * Q % (1 << 30) == 1
+    inv_src = (pathlib.Path(tga.__file__).parent.parent / "csrc" / "fq_inv.cuh").read_text()
+    batches = int(re.search(r"#define SAFEGCD_BATCHES (\d+)", inv_src).group(1))
+    assert batches == tga.SAFEGCD_BATCHES
+    g1_src = (pathlib.Path(tga.__file__).parent.parent / "csrc" / "g1_affine.cu").read_text()
+    threads = int(re.search(r"#define INV_THREADS (\d+)", g1_src).group(1))
+    assert re.search(r"#define INV_TILE \(4 \* INV_THREADS\)", g1_src)
+    assert 4 * threads == tga.INV_TILE
     np0 = int(re.search(r"#define FQ_NP0 (0x[0-9a-f]+)u", src).group(1), 16)
     assert np0 == (-pow(Q, -1, 1 << 32)) % (1 << 32)
