@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -45,6 +46,28 @@ def _find_nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def ptxas_info(log: str | None = None) -> dict:
+    """What `-Xptxas -v` says of each kernel in a build log (BUILD_LOG by
+    default) -> {kernel function name: {registers, spill_stores,
+    spill_loads, stack, smem}}. Empty when this process did not build."""
+    info, cur = {}, None
+    for line in (BUILD_LOG if log is None else log).splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)P", line)
+        if m:
+            cur = info.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+    return info
 
 
 def library() -> ctypes.CDLL:

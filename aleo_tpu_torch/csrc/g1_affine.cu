@@ -336,9 +336,9 @@ fq_inv_down_kernel(const int* __restrict__ dp, const int* __restrict__ rinvp,
 // short divsteps plus 37 limb updates whose multiply-adds are independent
 // of one another.
 //
-// Bound: the yardstick stays the ladder's work (554 products a lane), the
-// reference's for this function. The safegcd itself does 37 x 130 wide
-// multiply-adds a lane (9620 instructions, counting each as two); its SASS
+// Bound: the safegcd's own work, 37 x 130 wide multiply-adds a lane (9620
+// instructions, counting each as two); chip_smoke.py keeps the ladder's 554
+// products a lane, the reference's algorithm, as `ladder_bound_ms`. Its SASS
 // has 1203 instructions a batch, 44,984 a lane in all
 // (scripts/torch_sass_count.py).
 // ---------------------------------------------------------------------------

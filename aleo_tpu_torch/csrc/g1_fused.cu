@@ -1,8 +1,8 @@
 // Projective G1 group-law kernels for Hopper (sm_90a).
 //
-// Five kernels, one thread per lane, every Fq value as 12 32-bit words in
-// registers (fq.cuh). They replace the five Pallas kernels of the JAX
-// package's curves/g1_fused.py:
+// Five kernels, every Fq value as 12 32-bit words in registers (fq.cuh).
+// They replace the five Pallas kernels of the JAX package's
+// curves/g1_fused.py:
 //
 //   g1_double        <- _build_double        (_double_body, RCB16 Alg. 9)
 //   g1_add           <- _build_add           (_add_body,    RCB16 Alg. 7)
@@ -11,37 +11,39 @@
 //   g1_add_sel_proj  <- _build_add_sel_proj  (masked, signed Alg. 7)
 //   g1_normalize     <- _build_normalize     (lk.normalize on x, y, z)
 //
+// g1_double, g1_add_sel_proj and g1_normalize run one thread per lane on
+// fq_mul (mont.cuh). g1_add and g1_add_sel spread a lane over G1S_ROLES
+// threads and use fq_mul_ptx (fq_mul_ptx.cuh); their section below says why.
+//
 // The curve is y^2 = x^3 + 1 (a = 0, b3 = 3). The formulas are complete:
 // doubling, inverse pairs and the identity (z = 0, as the limbs of 0 or of p)
 // on either side go through the same arithmetic, so there is no case code.
 // Values are lazy: operands <= 2p, results < 2p (fq_neg may give 2p).
 //
-// Each kernel computes what its TPU kernel computes, product for product in
-// the same order, so a result equals the plain PyTorch version's
-// (curves/g1_fused.py) limb for limb after normalize. Tile padding and
-// constant blocks of the TPU kernels have no counterpart: the ragged edge is
-// `if (m >= M) return`, constants live in __constant__ memory.
+// Each kernel computes what its TPU kernel computes, product for product,
+// so a result equals the plain PyTorch version's (curves/g1_fused.py) limb
+// for limb after normalize. Tile padding and constant blocks of the TPU
+// kernels have no counterpart: the kernels mask the ragged edge themselves,
+// constants live in __constant__ memory.
 //
 // Masked lanes. g1_add_sel and g1_add_sel_proj return the accumulator on a
 // lane that is not valid (and g1_add_sel on a lane whose addend is the
 // (0, 0) sentinel) by copying its 72 stored words as they are: bit for bit,
-// not re-reduced. Such a lane leaves before any product, so a warp whose
-// lanes are all masked costs its bytes only; late rounds of an MSM, where
-// most segments are exhausted, are mostly such warps.
+// not re-reduced. Such a lane does no product, so a warp whose lanes are
+// all masked costs its bytes only; late rounds of an MSM, where most
+// segments are exhausted, are mostly such warps.
 //
 // Bounds. A lane of g1_add moves 9 x 24 words (864 B) and does 12 products
 // of 2 x 144 32x32->64 multiply-adds: at the card's rates the multiply-adds
 // take about 1.6 times as long as the bytes, so the three adders and the
 // doubling are bound by operations; g1_normalize does no product and is
-// bound by bytes. What the design does about it: nothing is written to
-// memory between the products of one group operation, the inputs are read
-// once, coalesced (limbs first), and the products are ordered so that the
-// six input coordinates die as early as the formulas allow (x and y of both
-// points after the fifth product of Alg. 7, everything after the sixth).
-// Measured on an H100 the group operations take 5 to 6 times that bound:
-// the carries of fq_mul form one dependent chain of 288 multiply-add steps,
-// and the 12 warps an SM holds at this register count do not hide its
-// latency (one warp alone needs 3.5 us for one product).
+// bound by bytes. The one-thread kernels write nothing to memory between
+// the products of one group operation, read the inputs once, coalesced
+// (limbs first), and order the products so that the six input coordinates
+// die as early as the formulas allow. Measured on an H100 they take 5 to 6
+// times that bound: the carries of fq_mul form one dependent chain of 288
+// multiply-add steps, and the 12 warps an SM holds at this register count
+// do not hide its latency (one warp alone needs 3.5 us for one product).
 //
 // Out of place only: an output must not alias an input (the pointers are
 // __restrict__).
@@ -51,21 +53,21 @@
 // lane count and the CUDA stream; it launches on that stream, does not
 // synchronise, and returns cudaGetLastError().
 //
-// Registers per thread (nvcc 12.8, -O3, sm_90a, -Xptxas -v): 168 for the four
-// group operations (the cap below; spill stores of 20 bytes in g1_double, 52
-// in g1_add, 28 in g1_add_sel, 172 in g1_add_sel_proj), 88 for g1_normalize
-// (no spill). The build log of every run is printed by chip_smoke.py's device
-// phase.
+// Registers per thread (nvcc 12.8, -O3, sm_90a, -Xptxas -v): 168 for
+// g1_double and g1_add_sel_proj (the cap below; spill stores of 20 and 172
+// bytes), 88 for g1_normalize, 80 for g1_add and g1_add_sel (no spill). The
+// build log of every run is printed by chip_smoke.py's device phase.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fq.cuh"
+#include "fq_mul_ptx.cuh"
 
 // Threads a block, and the blocks an SM must be able to hold (which caps the
 // registers a thread may use: 65536 / (G1_THREADS * G1_MIN_BLOCKS)).
-// Left alone the compiler takes 188 to 242 registers for the four group
-// operations and spills nothing, but then an SM holds 8 warps and the 1408
+// Left alone the compiler takes 188 to 242 registers for the one-thread
+// group operations and spills nothing, but then an SM holds 8 warps and the 1408
 // warps of a 45056-lane launch need two waves. Three blocks an SM cap a
 // thread at 168 registers: 20 to 172 bytes of spills, 12 warps an SM, one
 // wave, and every kernel is faster (g1_double 1.8x, the adders 1.1 to 1.2x;
@@ -110,42 +112,6 @@ __device__ __forceinline__ void g1_add_core(
     fq_sub(y3, y3, a);                          // y3 = (x1+z1)(x2+z2) - t0 - t2
     fq_mul3(t0, t0);
     fq_mul3(t2, t2);                            // b3 * t2
-    fq_add(z3, t1, t2);
-    fq_sub(t1, t1, t2);
-    fq_mul3(y3, y3);                            // b3 * y3
-    fq_mul(a, t4, y3);
-    fq_mul(b, t3, t1);
-    fq_sub(x3, b, a);                           // x3 = t3 t1 - t4 y3
-    fq_mul(a, y3, t0);
-    fq_mul(b, t1, z3);
-    fq_add(y3, b, a);                           // y3 = t1 z3 + y3 t0
-    fq_mul(a, t0, t3);
-    fq_mul(b, z3, t4);
-    fq_add(z3, b, a);                           // z3 = z3 t4 + t0 t3
-}
-
-// RCB16 Algorithm 8 (a = 0, b3 = 3, Z2 = 1): (x1, y1, z1) + affine (x2, y2).
-// 11 products, 2 mul3. Outputs must not alias inputs.
-__device__ __forceinline__ void g1_madd_core(
-    uint32_t x3[FQ_WORDS], uint32_t y3[FQ_WORDS], uint32_t z3[FQ_WORDS],
-    const uint32_t x1[FQ_WORDS], const uint32_t y1[FQ_WORDS], const uint32_t z1[FQ_WORDS],
-    const uint32_t x2[FQ_WORDS], const uint32_t y2[FQ_WORDS]) {
-    uint32_t t0[FQ_WORDS], t1[FQ_WORDS], t2[FQ_WORDS], t3[FQ_WORDS], t4[FQ_WORDS];
-    uint32_t a[FQ_WORDS], b[FQ_WORDS];
-    fq_mul(t0, x1, x2);
-    fq_mul(t1, y1, y2);
-    fq_add(a, x2, y2);
-    fq_add(b, x1, y1);
-    fq_mul(t3, a, b);
-    fq_add(a, t0, t1);
-    fq_sub(t3, t3, a);                          // t3 = (x2+y2)(x1+y1) - t0 - t1
-    fq_mul(t4, y2, z1);
-    fq_add(t4, t4, y1);                         // t4 = y2 z1 + y1
-    fq_mul(y3, x2, z1);
-    fq_add(y3, y3, x1);                         // y3 = x2 z1 + x1
-    fq_add(a, t0, t0);
-    fq_add(t0, a, t0);                          // t0 = 3 t0, by two additions
-    fq_mul3(t2, z1);                            // b3 * z1
     fq_add(z3, t1, t2);
     fq_sub(t1, t1, t2);
     fq_mul3(y3, y3);                            // b3 * y3
@@ -216,30 +182,280 @@ g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
 }
 
 // ---------------------------------------------------------------------------
-// g1_add: (x1, y1, z1) + (x2, y2, z2), complete.
-// Bound: 9 x 24 words a lane (864 B) against 12 products: operations.
+// g1_add and g1_add_sel: one lane spread over G1S_ROLES threads.
+//
+// Alg. 7 and Alg. 8 are two levels of independent products with cheap sums
+// between them:
+//
+//   level 1   Alg. 7: t0 = x1 x2, t1 = y1 y2, t2 = z1 z2, (x1 + y1)(x2 + y2),
+//                     (y1 + z1)(y2 + z2), (x1 + z1)(x2 + z2)
+//             Alg. 8: t0 = x1 x2, t1 = y1 y2, (x1 + y1)(x2 + y2), z1 y2, z1 x2
+//   derive    the six factors of level 2 (t3, t4, b3 y3, 3 t0, z3, t1 - b3 z1
+//             or t1 - b3 t2), each as its formula has it, in five jobs (z3
+//             and t1 share b3 t2 or b3 z1)
+//   level 2   t3 t1, t4 y3, t1 z3, y3 t0, z3 t4, t0 t3 (both algorithms)
+//   final     x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3
+//
+// A block holds G1S_LANES lanes (a multiple of 32) and G1S_ROLES roles; the
+// role is the slow index of threadIdx.x, so a warp is 32 lanes of one role:
+// its loads are coalesced in the limbs-first layout, and it never diverges
+// on which product it computes. Role r takes products and jobs r, r + R,
+// r + 2R, ... of each step (R = G1S_ROLES); the steps exchange their
+// values through shared memory (12 words a value, lane fastest: no bank
+// conflicts) with one barrier between steps. A lane's critical path is two
+// products (fq_mul_ptx, fq_mul_ptx.cuh) where one thread did 12 (11), and a
+// launch of L lanes has L / G1S_LANES blocks: 44 for the 1408-lane steps of
+// the bucket reduction, which ran on 11 blocks of 128 threads before.
+//
+// Every step computes what g1_add_core computes (the same sums in the same
+// order, the same products), so the result equals the plain version's limb
+// for limb after normalize. The operand tables below are read by
+// tests/test_torch_g1_hopper.py, whose host model runs the same schedule.
+//
+// Masks (g1_add_sel). A lane that is not valid, or whose addend is the
+// (0, 0) sentinel (y2's stored limbs all zero, before the negation), does
+// no product and at the end copies the accumulator's 72 stored words as
+// they are, split over the roles; a warp whose 32 lanes are all masked does
+// no product. Masked lanes and lanes past the ragged edge still reach every
+// barrier.
+//
+// Bound: g1_add 9 x 24 words a lane (864 B) against 12 products,
+// g1_add_sel 8 x 24 + 2 words (776 B) against 11 on the kept lanes:
+// operations, as for the one-thread kernels above.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(G1_THREADS, G1_MIN_BLOCKS)
+
+// Roles, lanes a block, and the blocks an SM must hold (a cap of 85
+// registers; 80 are used, no spill). Of the variants that
+// scripts/torch_g1_variants.py tries (2, 3 or 6 roles, 32 or 64 lanes,
+// other caps), this one is the fastest at 22 and 1408 lanes and within 1 %
+// of the fastest at 45056 on an H100; more lanes or fewer roles lengthen a
+// block's critical path, and G1S_LANES * 12 * 4 B * 12 values of shared
+// memory grow with the lanes.
+#ifndef G1S_ROLES
+#define G1S_ROLES 6
+#endif
+#ifndef G1S_LANES
+#define G1S_LANES 32
+#endif
+#ifndef G1S_MIN_BLOCKS
+#define G1S_MIN_BLOCKS 4
+#endif
+#define G1S_THREADS (G1S_ROLES * G1S_LANES)
+
+// level 1, product j = (acc[u1] (+ acc[v1])) x (addend[u2] (+ addend[v2])),
+// coordinates 0, 1, 2 = x, y, z; -1 = no second term. {u1, v1, u2, v2}
+static __constant__ int8_t G1S_ADD_L1[6][4] = {
+    {0, -1, 0, -1}, {1, -1, 1, -1}, {2, -1, 2, -1}, {0, 1, 0, 1}, {1, 2, 1, 2}, {0, 2, 0, 2}};
+static __constant__ int8_t G1S_MADD_L1[5][4] = {
+    {0, -1, 0, -1}, {1, -1, 1, -1}, {0, 1, 0, 1}, {2, -1, 1, -1}, {2, -1, 0, -1}};
+// level 2, product j = d[a] d[b] over the derived values
+// d = (t3, t4, b3 y3, 3 t0, z3, t1 - b3 t2)
+static __constant__ int8_t G1S_L2[6][2] = {{0, 5}, {1, 2}, {5, 4}, {2, 3}, {4, 1}, {3, 0}};
+
+__device__ __forceinline__ void g1s_put(uint32_t* s, int lane, const uint32_t v[FQ_WORDS]) {
+#pragma unroll
+    for (int i = 0; i < FQ_WORDS; i++) s[i * G1S_LANES + lane] = v[i];
+}
+
+__device__ __forceinline__ void g1s_get(uint32_t v[FQ_WORDS], const uint32_t* s, int lane) {
+#pragma unroll
+    for (int i = 0; i < FQ_WORDS; i++) v[i] = s[i * G1S_LANES + lane];
+}
+
+// coordinate u of a point in memory (y negated when neg_y), as 12 words
+__device__ __forceinline__ void g1s_coord(uint32_t v[FQ_WORDS], const int* __restrict__ xp,
+                                          const int* __restrict__ yp,
+                                          const int* __restrict__ zp, int u, bool neg_y,
+                                          long ld, long m) {
+    fq_load(v, u == 0 ? xp : (u == 1 ? yp : zp), ld, m);
+    if (u == 1 && neg_y) fq_neg(v, v);
+}
+
+// coordinate u, plus coordinate w unless w < 0
+__device__ __forceinline__ void g1s_operand(uint32_t v[FQ_WORDS], const int* __restrict__ xp,
+                                            const int* __restrict__ yp,
+                                            const int* __restrict__ zp, int u, int w,
+                                            bool neg_y, long ld, long m) {
+    g1s_coord(v, xp, yp, zp, u, neg_y, ld, m);
+    if (w >= 0) {
+        uint32_t t[FQ_WORDS];
+        g1s_coord(t, xp, yp, zp, w, neg_y, ld, m);
+        fq_add(v, v, t);
+    }
+}
+
+// Alg. 7's derive job j (0..4): level-1 values in s1, derived values to s2
+__device__ __forceinline__ void g1s_add_derive(int j, const uint32_t* s1, uint32_t* s2,
+                                               int lane) {
+    constexpr int V = FQ_WORDS * G1S_LANES;
+    uint32_t a[FQ_WORDS], b[FQ_WORDS], c[FQ_WORDS];
+    if (j == 4) {
+        g1s_get(a, s1 + 2 * V, lane);
+        fq_mul3(b, a);                          // b3 t2
+        g1s_get(a, s1 + 1 * V, lane);           // t1
+        fq_add(c, a, b);
+        g1s_put(s2 + 4 * V, lane, c);           // z3 = t1 + b3 t2
+        fq_sub(c, a, b);
+        g1s_put(s2 + 5 * V, lane, c);           // t1 = t1 - b3 t2
+        return;
+    }
+    if (j == 3) {
+        g1s_get(a, s1, lane);
+        fq_mul3(c, a);                          // 3 t0
+        g1s_put(s2 + 3 * V, lane, c);
+        return;
+    }
+    // j = 0, 1, 2: (product 3 + j) - (t_u + t_w), times b3 for j = 2
+    const int u = j == 1 ? 1 : 0, w = j == 0 ? 1 : 2;
+    g1s_get(a, s1 + u * V, lane);
+    g1s_get(b, s1 + w * V, lane);
+    fq_add(c, a, b);
+    g1s_get(a, s1 + (3 + j) * V, lane);
+    fq_sub(b, a, c);
+    if (j == 2) fq_mul3(b, b);                  // b3 y3
+    g1s_put(s2 + j * V, lane, b);
+}
+
+// Alg. 8's derive job j (0..4); x1, y1, z1 come from memory
+__device__ __forceinline__ void g1s_madd_derive(int j, const uint32_t* s1, uint32_t* s2,
+                                                int lane, const int* __restrict__ x1p,
+                                                const int* __restrict__ y1p,
+                                                const int* __restrict__ z1p, long ld,
+                                                long m) {
+    constexpr int V = FQ_WORDS * G1S_LANES;
+    uint32_t a[FQ_WORDS], b[FQ_WORDS], c[FQ_WORDS];
+    if (j == 0) {
+        g1s_get(a, s1, lane);
+        g1s_get(b, s1 + 1 * V, lane);
+        fq_add(c, a, b);
+        g1s_get(a, s1 + 2 * V, lane);
+        fq_sub(b, a, c);                        // t3 = (x2 + y2)(x1 + y1) - t0 - t1
+        g1s_put(s2, lane, b);
+    } else if (j == 1) {
+        g1s_get(a, s1 + 3 * V, lane);
+        fq_load(b, y1p, ld, m);
+        fq_add(c, a, b);                        // t4 = y2 z1 + y1
+        g1s_put(s2 + 1 * V, lane, c);
+    } else if (j == 2) {
+        g1s_get(a, s1 + 4 * V, lane);
+        fq_load(b, x1p, ld, m);
+        fq_add(c, a, b);
+        fq_mul3(c, c);                          // b3 y3, y3 = x2 z1 + x1
+        g1s_put(s2 + 2 * V, lane, c);
+    } else if (j == 3) {
+        g1s_get(a, s1, lane);
+        fq_add(b, a, a);
+        fq_add(c, b, a);                        // 3 t0, by two additions
+        g1s_put(s2 + 3 * V, lane, c);
+    } else {
+        fq_load(a, z1p, ld, m);
+        fq_mul3(b, a);                          // b3 z1
+        g1s_get(a, s1 + 1 * V, lane);           // t1
+        fq_add(c, a, b);
+        g1s_put(s2 + 4 * V, lane, c);           // z3 = t1 + b3 z1
+        fq_sub(c, a, b);
+        g1s_put(s2 + 5 * V, lane, c);           // t1 = t1 - b3 z1
+    }
+}
+
+// Both kernels. MIXED: Alg. 8 with an affine addend (x2, y2), the sign and
+// the masks; else Alg. 7 on every lane.
+template <bool MIXED>
+__device__ __forceinline__ void g1s_body(
+    const int* __restrict__ x1p, const int* __restrict__ y1p, const int* __restrict__ z1p,
+    const int* __restrict__ x2p, const int* __restrict__ y2p, const int* __restrict__ z2p,
+    const int* __restrict__ signp, const int* __restrict__ validp, int* __restrict__ oxp,
+    int* __restrict__ oyp, int* __restrict__ ozp, int M) {
+    constexpr int V = FQ_WORDS * G1S_LANES;
+    __shared__ uint32_t s1[6 * V], s2[6 * V];
+    const int role = threadIdx.x / G1S_LANES, lane = threadIdx.x % G1S_LANES;
+    const long m = (long)blockIdx.x * G1S_LANES + lane;
+    const long ld = M;
+    const bool live = m < M;
+    bool keep = live, neg_y = false;
+    if constexpr (MIXED) {
+        if (live) {
+            int any = 0;
+#pragma unroll
+            for (int l = 0; l < FQ_LIMBS; l++) any |= y2p[(long)l * ld + m];
+            neg_y = signp[m] != 0;
+            keep = validp[m] != 0 && any != 0;
+        }
+    }
+    // level 1. A live lane loads its operands whether it is kept or not, so
+    // that these loads need not wait for the mask's.
+    uint32_t a[FQ_WORDS], b[FQ_WORDS];
+    constexpr int N1 = MIXED ? 5 : 6;
+    for (int j = role; j < N1; j += G1S_ROLES) {
+        if (live) {
+            int t[4];
+#pragma unroll
+            for (int i = 0; i < 4; i++) {
+                if constexpr (MIXED)
+                    t[i] = G1S_MADD_L1[j][i];
+                else
+                    t[i] = G1S_ADD_L1[j][i];
+            }
+            g1s_operand(a, x1p, y1p, z1p, t[0], t[1], false, ld, m);
+            g1s_operand(b, x2p, y2p, z2p, t[2], t[3], neg_y, ld, m);
+        }
+        if (keep) {
+            fq_mul_ptx(a, a, b);
+            g1s_put(s1 + j * V, lane, a);
+        }
+    }
+    __syncthreads();
+    if (keep) {
+        for (int j = role; j < 5; j += G1S_ROLES) {
+            if constexpr (MIXED)
+                g1s_madd_derive(j, s1, s2, lane, x1p, y1p, z1p, ld, m);
+            else
+                g1s_add_derive(j, s1, s2, lane);
+        }
+    }
+    __syncthreads();
+    if (keep) {
+        for (int j = role; j < 6; j += G1S_ROLES) {
+            g1s_get(a, s2 + G1S_L2[j][0] * V, lane);
+            g1s_get(b, s2 + G1S_L2[j][1] * V, lane);
+            fq_mul_ptx(a, a, b);
+            g1s_put(s1 + j * V, lane, a);
+        }
+    }
+    __syncthreads();
+    if (keep) {
+        for (int c = role; c < 3; c += G1S_ROLES) {
+            g1s_get(a, s1 + 2 * c * V, lane);
+            g1s_get(b, s1 + (2 * c + 1) * V, lane);
+            if (c == 0)
+                fq_sub(a, a, b);                // x3 = t3 t1 - t4 y3
+            else
+                fq_add(a, a, b);                // y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3
+            fq_store(c == 0 ? oxp : (c == 1 ? oyp : ozp), ld, m, a);
+        }
+    }
+    // a masked lane: the accumulator's stored words, split over the roles
+    if constexpr (MIXED) {
+        if (live && !keep) {
+            for (int k = role; k < 3 * FQ_LIMBS; k += G1S_ROLES) {
+                const int c = k / FQ_LIMBS, l = k % FQ_LIMBS;
+                const int* src = c == 0 ? x1p : (c == 1 ? y1p : z1p);
+                int* dst = c == 0 ? oxp : (c == 1 ? oyp : ozp);
+                dst[(long)l * ld + m] = src[(long)l * ld + m];
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// g1_add: (x1, y1, z1) + (x2, y2, z2), complete.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(G1S_THREADS, G1S_MIN_BLOCKS)
 g1_add_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
               const int* __restrict__ z1p, const int* __restrict__ x2p,
               const int* __restrict__ y2p, const int* __restrict__ z2p,
               int* __restrict__ oxp, int* __restrict__ oyp, int* __restrict__ ozp, int M) {
-    long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (m >= M) return;
-    long ld = M;
-    uint32_t x1[FQ_WORDS], y1[FQ_WORDS], z1[FQ_WORDS];
-    uint32_t x2[FQ_WORDS], y2[FQ_WORDS], z2[FQ_WORDS];
-    uint32_t x3[FQ_WORDS], y3[FQ_WORDS], z3[FQ_WORDS];
-    fq_load(x1, x1p, ld, m);
-    fq_load(x2, x2p, ld, m);
-    fq_load(y1, y1p, ld, m);
-    fq_load(y2, y2p, ld, m);
-    fq_load(z1, z1p, ld, m);
-    fq_load(z2, z2p, ld, m);
-    g1_add_core(x3, y3, z3, x1, y1, z1, x2, y2, z2);
-    fq_store(oxp, ld, m, x3);
-    fq_store(oyp, ld, m, y3);
-    fq_store(ozp, ld, m, z3);
+    g1s_body<false>(x1p, y1p, z1p, x2p, y2p, z2p, nullptr, nullptr, oxp, oyp, ozp, M);
 }
 
 // ---------------------------------------------------------------------------
@@ -248,43 +464,14 @@ g1_add_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
 // recognised by the stored limbs of y2 being all zero (table rows are
 // canonical), before the negation (-0 is stored as 2p), and masked like an
 // invalid lane.
-// Bound: 8 x 24 + 2 words a lane (776 B) against 11 products on the lanes
-// that are kept: operations, unless nearly every lane is masked.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(G1_THREADS, G1_MIN_BLOCKS)
+__global__ void __launch_bounds__(G1S_THREADS, G1S_MIN_BLOCKS)
 g1_add_sel_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
                   const int* __restrict__ z1p, const int* __restrict__ x2p,
                   const int* __restrict__ y2p, const int* __restrict__ signp,
                   const int* __restrict__ validp, int* __restrict__ oxp,
                   int* __restrict__ oyp, int* __restrict__ ozp, int M) {
-    long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (m >= M) return;
-    long ld = M;
-    uint32_t y2[FQ_WORDS];
-    fq_load(y2, y2p, ld, m);
-    uint32_t any = 0;
-#pragma unroll
-    for (int i = 0; i < FQ_WORDS; i++) any |= y2[i];
-    if (validp[m] == 0 || any == 0) {
-        lane_copy(oxp, x1p, ld, m);
-        lane_copy(oyp, y1p, ld, m);
-        lane_copy(ozp, z1p, ld, m);
-        return;
-    }
-    uint32_t x1[FQ_WORDS], y1[FQ_WORDS], z1[FQ_WORDS], x2[FQ_WORDS];
-    uint32_t x3[FQ_WORDS], y3[FQ_WORDS], z3[FQ_WORDS];
-    if (signp[m] != 0) {
-        fq_neg(x3, y2);
-        fq_copy(y2, x3);
-    }
-    fq_load(x1, x1p, ld, m);
-    fq_load(x2, x2p, ld, m);
-    fq_load(y1, y1p, ld, m);
-    fq_load(z1, z1p, ld, m);
-    g1_madd_core(x3, y3, z3, x1, y1, z1, x2, y2);
-    fq_store(oxp, ld, m, x3);
-    fq_store(oyp, ld, m, y3);
-    fq_store(ozp, ld, m, z3);
+    g1s_body<true>(x1p, y1p, z1p, x2p, y2p, nullptr, signp, validp, oxp, oyp, ozp, M);
 }
 
 // ---------------------------------------------------------------------------
@@ -358,6 +545,7 @@ g1_normalize_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
 // ---------------------------------------------------------------------------
 
 static inline unsigned g1_blocks(int M) { return (unsigned)((M + G1_THREADS - 1) / G1_THREADS); }
+static inline unsigned g1s_blocks(int M) { return (unsigned)((M + G1S_LANES - 1) / G1S_LANES); }
 
 extern "C" int g1_double_launch(const int* x, const int* y, const int* z, int* ox, int* oy,
                                 int* oz, int M, void* stream) {
@@ -370,7 +558,7 @@ extern "C" int g1_add_launch(const int* x1, const int* y1, const int* z1, const 
                              const int* y2, const int* z2, int* ox, int* oy, int* oz, int M,
                              void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    g1_add_kernel<<<g1_blocks(M), G1_THREADS, 0, (cudaStream_t)stream>>>(
+    g1_add_kernel<<<g1s_blocks(M), G1S_THREADS, 0, (cudaStream_t)stream>>>(
         x1, y1, z1, x2, y2, z2, ox, oy, oz, M);
     return (int)cudaGetLastError();
 }
@@ -379,7 +567,7 @@ extern "C" int g1_add_sel_launch(const int* x1, const int* y1, const int* z1, co
                                  const int* y2, const int* sign, const int* valid, int* ox,
                                  int* oy, int* oz, int M, void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    g1_add_sel_kernel<<<g1_blocks(M), G1_THREADS, 0, (cudaStream_t)stream>>>(
+    g1_add_sel_kernel<<<g1s_blocks(M), G1S_THREADS, 0, (cudaStream_t)stream>>>(
         x1, y1, z1, x2, y2, sign, valid, ox, oy, oz, M);
     return (int)cudaGetLastError();
 }

@@ -33,7 +33,10 @@ Phases, each printing one JSON line with its seconds:
             at the ragged widths 1, 22, 129 and 1001, with P + P, P + (-P),
             identities (z as 0 and as p), the (0, 0) sentinel, invalid lanes
             and lazy representatives planted among random lanes; at 22 lanes
-            also real curve points against the host group law. fq_mul_canon,
+            also real curve points against the host group law. g1_add and
+            g1_add_sel (a lane over six threads) also at 704, 1408 and 22528
+            lanes, and timed at 22, 704 and 1408 lanes too, with their
+            registers and spills from the build log. fq_mul_canon,
             fq_mul_chain12 and fr_mul each against its plain version, equal
             bit for bit (raw limbs, no normalize), at 2^16 elements and at
             1, 129 and 1001, with 0, 1, p - 1, p, 2p - 1 and the largest
@@ -144,6 +147,9 @@ MADS_PER_PRODUCT = 2 * 2 * 12 * 12      # two 12x12-word passes, 2 instructions 
 M_GRID = 22 * 2048 * 9 // 8             # 50688
 M_PROJ = 22 * 2048                      # 45056
 M_WINDOWS = 22                          # the end of the bucket reduction
+# more widths of add_lf in a 32768-point projective MSM (c = 12): the scan
+# steps of 704 and 1408 lanes, the first level of the window trees (22528)
+M_SPREAD_WIDTHS = (704, 1408, 22528)
 M_FERMAT = ga.FERMAT_W                  # 128
 M_ROOTS = -(-M_GRID // ga.INV_TILE)     # 50 tile products at the grid's root
 M_TWO_LEVELS = 4 * 22 * 2048            # 180224: msm_batch_host's grid at k = 4
@@ -545,20 +551,22 @@ def same3(got, want):
     return max(same(g, w) for g, w in zip(got, want))
 
 
-def _g1_check(args):
+def _g1_check(args, spread_only=False):
     """Each g1 kernel against its plain version on one set of inputs ->
-    {name: max_abs_err}. Masked lanes must hold the accumulator bit for bit."""
+    {name: max_abs_err}; only g1_add and g1_add_sel if spread_only. Masked
+    lanes must hold the accumulator bit for bit."""
     x1, y1, z1, x2, y2, z2, sign, valid = args
     acc, addend = gf.G1LF(x1, y1, z1), gf.G1LF(x2, y2, z2)
-    err = {
-        "g1_double": same3(gf.double_lf(acc), gf._double_plain(x1, y1, z1)),
-        "g1_add": same3(gf.add_lf(acc, addend), gf._add_plain(x1, y1, z1, x2, y2, z2)),
-    }
+    err = {"g1_add": same3(gf.add_lf(acc, addend), gf._add_plain(x1, y1, z1, x2, y2, z2))}
     got = gf.add_sel_lf(acc, x2, y2, sign, valid)
     err["g1_add_sel"] = same3(got, gf._add_sel_plain(x1, y1, z1, x2, y2, sign, valid))
     masked = ((valid == 0) | (y2.amax(dim=0, keepdim=True) == 0))[0]
     for g, a in zip(got, acc):
         assert torch.equal(g[:, masked], a[:, masked]), "g1_add_sel changed a masked lane"
+    if spread_only:
+        torch.cuda.synchronize()
+        return err
+    err["g1_double"] = same3(gf.double_lf(acc), gf._double_plain(x1, y1, z1))
     got = gf.add_sel_proj_lf(acc, addend, sign, valid)
     err["g1_add_sel_proj"] = same3(
         got, gf._add_sel_proj_plain(x1, y1, z1, x2, y2, z2, sign, valid))
@@ -606,6 +614,13 @@ def _g1_kernels(res):
         assert w < len(G1_KINDS) or min(small_counts) > 0, (w, small_counts)
         for name, e in _g1_check(small).items():
             err[name] = max(err[name], e)
+    # g1_add and g1_add_sel (a lane over several threads) also at more widths
+    # of the bucket reduction
+    for w in M_SPREAD_WIDTHS:
+        small, small_counts = _g1_inputs(rng, w)
+        assert min(small_counts) > 0, (w, small_counts)
+        for name, e in _g1_check(small, spread_only=True).items():
+            err[name] = max(err[name], e)
     _g1_on_the_curve(rng)
     x1, y1, z1, x2, y2, z2, sign, valid = args
     narrow = tuple(t[:, :M_WINDOWS].contiguous() for t in args)
@@ -639,7 +654,14 @@ def _g1_kernels(res):
         }
     # the narrow end of the bucket reduction: one lane for each window
     res["g1_double"]["ms_22_lanes"] = kernel_ms(specs["g1_double"][0], copies(narrow[:3], 4))
-    res["g1_add"]["ms_22_lanes"] = kernel_ms(specs["g1_add"][0], copies(narrow[:6], 4))
+    # g1_add and g1_add_sel at the reduction's narrow widths; registers and
+    # spills from the build log
+    ptxas = _build.ptxas_info()
+    for name, cols in (("g1_add", range(6)), ("g1_add_sel", (0, 1, 2, 3, 4, 6, 7))):
+        for w in (M_WINDOWS, 704, 1408):
+            part = tuple(args[i][:, :w].contiguous() for i in cols)
+            res[name][f"ms_{w}_lanes"] = kernel_ms(specs[name][0], copies(part, 4))
+        res[name]["ptxas"] = ptxas.get(name + "_kernel", "not built in this process")
     res["g1_add_sel"].update(kept_lanes=kept, planted=dict(zip(G1_KINDS, counts)))
     res["g1_add_sel_proj"]["valid_lanes"] = n_valid
 

@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Block size and register budget of the projective G1 kernels, tried out.
+"""Roles, lanes a block and register budget of g1_add and g1_add_sel, tried out.
 
-    python3 scripts/torch_g1_variants.py [out.json]
+    python3 scripts/torch_g1_variants.py [--baseline DIR] [out.json]
 
-Builds `aleo_tpu_torch/csrc/g1_fused.cu` once for each variant below (threads
-a block through -DG1_THREADS; blocks an SM must hold through -DG1_MIN_BLOCKS,
-the second argument of __launch_bounds__, which caps a thread's registers at
-65536 / (threads * blocks) and makes the compiler spill what does not fit), and
-for each prints what `-Xptxas -v` says of every kernel (registers, spill
-bytes) and the device time of one launch of g1_double, g1_add, g1_add_sel and
-g1_add_sel_proj at the 45056 lanes of a 32768-point MSM (events around
-replays of a CUDA graph whose launches rotate over buffers larger than the L2
-cache). Every variant's outputs are held against the first one's, limb for
-limb. The variant that `_build.py` builds is the first. Needs a CUDA device
-and nvcc.
+g1_add and g1_add_sel (`aleo_tpu_torch/csrc/g1_fused.cu`) spread a lane over
+G1S_ROLES threads, G1S_LANES lanes a block, and ask for G1S_MIN_BLOCKS blocks
+an SM (the second argument of __launch_bounds__, which caps a thread's
+registers at 65536 / (roles * lanes * blocks)). This script builds the source
+once for each variant below, all builds at once, and for each prints what
+`-Xptxas -v` says of the two kernels (registers, spill bytes, shared memory)
+and the device time of one launch at 22, 1408 and 45056 lanes (the narrow end
+of the bucket reduction, its scan steps, a round of a 32768-point MSM; events
+around replays of a CUDA graph whose launches rotate over distinct buffers).
+
+With --baseline DIR, the same two kernels are also built from
+DIR/aleo_tpu_torch/csrc/g1_fused.cu (another checkout, for example the
+parent commit unpacked with `git archive`; same launcher signatures) at its
+own defaults and timed beside them, first.
+
+Every variant's outputs are held against the first one's after normalize
+(exact), and `raw_equal` says whether the stored limbs agree before it too.
+The variant that `_build.py` builds is the first of VARIANTS. Needs a CUDA
+device and nvcc.
 """
 
+import argparse
 import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -28,64 +36,81 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from aleo_tpu_torch import _build, params
+from aleo_tpu_torch.fields import limb_kernels as lk
 
-VARIANTS = [        # (name, threads a block, blocks an SM must hold)
-    ("t128_b3", 128, 3),        # <= 168 registers
-    ("t128_b1", 128, 1),
-    ("t64_b1", 64, 1),
-    ("t256_b1", 256, 1),
-    ("t128_b4", 128, 4),        # <= 128 registers
-    ("t64_b5", 64, 5),          # <= 200 registers
-    ("t64_b6", 64, 6),          # <= 168 registers
+VARIANTS = [        # (name, roles, lanes a block, blocks an SM must hold)
+    ("r6_l32_b4", 6, 32, 4),        # the default: 192 threads, <= 85 registers
+    ("r6_l32_b1", 6, 32, 1),        # no cap
+    ("r6_l32_b5", 6, 32, 5),        # <= 68 registers
+    ("r6_l64_b2", 6, 64, 2),        # 384 threads, <= 85 registers
+    ("r3_l32_b8", 3, 32, 8),        # 96 threads, <= 85 registers
+    ("r3_l64_b4", 3, 64, 4),        # 192 threads, <= 85 registers
+    ("r2_l32_b8", 2, 32, 8),        # 64 threads, <= 128 registers
+    ("r2_l64_b5", 2, 64, 5),        # 128 threads, <= 102 registers
 ]
-M = 22 * 2048
+WIDTHS = (22, 1408, 22 * 2048)
 L = params.FQ_LIMBS
 SETS = 3
 KERNELS = {         # name -> (coordinate inputs, flag inputs)
-    "g1_double": (3, 0), "g1_add": (6, 0), "g1_add_sel": (5, 2), "g1_add_sel_proj": (6, 2),
+    "g1_add": (6, 0), "g1_add_sel": (5, 2),
 }
 
 
-def build(name, threads, blocks):
-    out_dir = os.path.join(_build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, f"g1_{name}.so")
-    cmd = [_build._find_nvcc(), *_build.NVCC_FLAGS, f"-DG1_THREADS={threads}",
-           f"-DG1_MIN_BLOCKS={blocks}", "-I", _build.CSRC_DIR, "-shared", "-o", so,
-           os.path.join(_build.CSRC_DIR, "g1_fused.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(proc.stdout + proc.stderr)
-    info, cur = {}, None
-    for line in (proc.stdout + proc.stderr).splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)_kernel", line)
-        if m:
-            cur = m.group(1)
-            info[cur] = {}
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and cur:
-            info[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            info[cur]["registers"] = int(m.group(1))
+def _compile(source, out, defines):
+    cmd = [_build._find_nvcc(), *_build.NVCC_FLAGS, *defines, "-I", os.path.dirname(source),
+           "-shared", "-o", out, source]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _load(so):
     lib = ctypes.CDLL(so)
     for kname, (nc, nf) in KERNELS.items():
         fn = getattr(lib, kname + "_launch")
         fn.argtypes = [ctypes.c_void_p] * (nc + nf + 3) + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib, info
+    return lib
+
+
+def build_all(baseline):
+    """Every variant (and the baseline) at once -> [(name, settings, lib, ptxas)]."""
+    out_dir = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    here = os.path.join(_build.CSRC_DIR, "g1_fused.cu")
+    jobs = []
+    if baseline:
+        src = os.path.join(baseline, "aleo_tpu_torch", "csrc", "g1_fused.cu")
+        jobs.append(("baseline", {"source": src}, os.path.join(out_dir, "g1_baseline.so"), []))
+    for name, roles, lanes, blocks in VARIANTS:
+        defines = [f"-DG1S_ROLES={roles}", f"-DG1S_LANES={lanes}", f"-DG1S_MIN_BLOCKS={blocks}"]
+        settings = {"roles": roles, "lanes": lanes, "min_blocks": blocks}
+        jobs.append((name, settings, os.path.join(out_dir, f"g1_{name}.so"), defines))
+    procs = [_compile(s.get("source", here), so, d) for _, s, so, d in jobs]
+    built = []
+    for (name, settings, so, _), proc in zip(jobs, procs):
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        info = _build.ptxas_info(log)
+        ptxas = {k: info.get(k + "_kernel") for k in KERNELS}
+        built.append((name, settings, _load(so), ptxas))
+    return built
 
 
 def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", help="another checkout whose g1_fused.cu is timed first")
+    ap.add_argument("out", nargs="?")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_g1_variants: needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    built = build_all(args.baseline)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
+    M = max(WIDTHS)
 
     def coord():
         x = torch.randint(0, 1 << 16, (L, M), dtype=torch.int32, device="cuda", generator=gen)
@@ -95,52 +120,59 @@ def main(argv):
     sets = [[coord() for _ in range(6)] for _ in range(SETS)]
     sign = torch.randint(0, 2, (1, M), dtype=torch.int32, device="cuda", generator=gen)
     valid = torch.ones((1, M), dtype=torch.int32, device="cuda")
-    outs = [torch.empty((L, M), dtype=torch.int32, device="cuda") for _ in range(3)]
     stream = torch.cuda.Stream()
-    result = {"card": card, "lanes": M, "variants": {}}
+    fq = lk.get_fq()
+    result = {"card": card, "widths": list(WIDTHS), "variants": {}}
     first = {}
-    for name, threads, blocks in VARIANTS:
-        lib, info = build(name, threads, blocks)
-        row = {"threads": threads, "min_blocks": blocks, "ptxas": info, "ms": {}}
+    for name, settings, lib, ptxas in built:
+        row = {**settings, "ptxas": ptxas, "ms": {}, "raw_equal": {}}
         for kname, (nc, nf) in KERNELS.items():
             fn = getattr(lib, kname + "_launch")
-            flags = [sign, valid][:nf]
+            for w in WIDTHS:
+                ins = [[t[:, :w].contiguous() for t in s[:nc]] for s in sets]
+                flags = [f[:, :w].contiguous() for f in (sign, valid)][:nf]
+                outs = [torch.empty((L, w), dtype=torch.int32, device="cuda") for _ in range(3)]
 
-            def launch(s):
-                ptrs = [t.data_ptr() for t in (*sets[s][:nc], *flags, *outs)]
-                rc = fn(*ptrs, M, torch.cuda.current_stream().cuda_stream)
-                if rc:
-                    raise RuntimeError(f"{kname} ({name}): cudaError {rc}")
+                def launch(s):
+                    ptrs = [t.data_ptr() for t in (*ins[s], *flags, *outs)]
+                    rc = fn(*ptrs, w, torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"{kname} ({name}): cudaError {rc}")
 
-            with torch.cuda.stream(stream):
-                launch(0)
-                torch.cuda.synchronize()
-                got = torch.cat(outs).clone()
-                if kname in first:
-                    assert torch.equal(got, first[kname]), f"{kname} ({name}) differs"
-                else:
-                    first[kname] = got
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=stream):
-                    for s in range(SETS):
-                        launch(s)
-                graph.replay()
-                torch.cuda.synchronize()
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                for _ in range(20):
+                with torch.cuda.stream(stream):
+                    launch(0)
+                    torch.cuda.synchronize()
+                    got = torch.cat(outs).clone()
+                    key = (kname, w)
+                    if key in first:
+                        want = first[key]
+                        norm = lambda t: torch.cat([lk.normalize(fq, c) for c in t.split(L)])
+                        assert torch.equal(norm(got), norm(want)), \
+                            f"{kname} ({name}) differs at {w} lanes"
+                        row["raw_equal"][f"{kname}_{w}"] = bool(torch.equal(got, want))
+                    else:
+                        first[key] = got
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, stream=stream):
+                        for s in range(SETS):
+                            launch(s)
                     graph.replay()
-                e1.record()
-                torch.cuda.synchronize()
-                row["ms"][kname] = e0.elapsed_time(e1) / (20 * SETS)
+                    torch.cuda.synchronize()
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    for _ in range(20):
+                        graph.replay()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    row["ms"][f"{kname}_{w}"] = e0.elapsed_time(e1) / (20 * SETS)
         result["variants"][name] = row
         print(json.dumps({name: row}), flush=True)
     text = json.dumps(result)
     print(text)
-    if argv:
-        os.makedirs(os.path.dirname(os.path.abspath(argv[0])), exist_ok=True)
-        with open(argv[0], "w") as f:
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
             f.write(text + "\n")
 
 

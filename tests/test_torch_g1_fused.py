@@ -277,6 +277,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 POINTERS = {"g1_double": 6, "g1_add": 9, "g1_add_sel": 10, "g1_add_sel_proj": 11,
             "g1_normalize": 6}
+SPREAD = ("g1_add", "g1_add_sel")
 
 
 @pytest.mark.parametrize("name", sorted(POINTERS))
@@ -296,7 +297,11 @@ def test_cuda_launcher_signature_matches_its_binding(name):
     k = POINTERS[name]
     assert f"lib.{name}_launch.argtypes = [P] * {k} + [I, P]" in build
     assert name in tgf.LAUNCHES
-    assert f"__launch_bounds__(G1_THREADS, G1_MIN_BLOCKS)\n{name}_kernel(" in src
+    # g1_add and g1_add_sel spread a lane over several threads (G1S_*)
+    bounds = "G1S_THREADS, G1S_MIN_BLOCKS" if name in SPREAD else "G1_THREADS, G1_MIN_BLOCKS"
+    assert f"__launch_bounds__({bounds})\n{name}_kernel(" in src
+    grid = "g1s_blocks(M), G1S_THREADS" if name in SPREAD else "g1_blocks(M), G1_THREADS"
+    assert f"{name}_kernel<<<{grid}, 0, (cudaStream_t)stream>>>(" in src
 
 
 def test_cuda_formulas_have_the_products_of_their_algorithms():
@@ -305,10 +310,23 @@ def test_cuda_formulas_have_the_products_of_their_algorithms():
     def body(fn):
         return re.search(r"void " + fn + r"\((?:.*?)\) \{(.*?)\n\}", src, re.S).group(1)
 
-    for fn, products, mul3s in (("g1_add_core", 12, 3), ("g1_madd_core", 11, 2),
-                                ("g1_double_core", 8, 2)):
+    for fn, products, mul3s in (("g1_add_core", 12, 3), ("g1_double_core", 8, 2)):
         assert body(fn).count("fq_mul(") == products, fn
         assert body(fn).count("fq_mul3(") == mul3s, fn
+    # g1_add (Alg. 7) and g1_add_sel (Alg. 8): a product of each level is one
+    # row of its operand table, the sums between the levels are derive jobs
+    def rows(table):
+        return len(re.findall(r"\{-?\d+(?:, -?\d+)+\}", re.search(
+            r"int8_t " + table + r"\[\d+\]\[\d+\] = \{(.*?)\};", src, re.S).group(1)))
+
+    for l1, derive, products, mul3s in (("G1S_ADD_L1", "g1s_add_derive", 12, 3),
+                                        ("G1S_MADD_L1", "g1s_madd_derive", 11, 2)):
+        assert rows(l1) + rows("G1S_L2") == products, l1
+        assert body(derive).count("fq_mul3(") == mul3s, derive
+        assert "fq_mul(" not in body(derive)
+    spread = re.search(r"void g1s_body\((?:.*?)\) \{(.*?)\n\}", src, re.S).group(1)
+    assert spread.count("fq_mul_ptx(") == 2 and "fq_mul(" not in spread
+    assert spread.count("__syncthreads()") == 3
     # every source that includes the field header keeps its own constants
     hdr = (pathlib.Path(_build.CSRC_DIR) / "fq.cuh").read_text()
     assert len(re.findall(r"^static __constant__ u?int32_t FQ_", hdr, re.M)) == 5

@@ -1,0 +1,406 @@
+"""The Hopper form of g1_add and g1_add_sel (csrc/g1_fused.cu, g1s_body) on
+the CPU, through two host models.
+
+The product. `_mul_ptx_host` runs the inline PTX of csrc/fq_mul_ptx.cuh as
+the header spells it: the asm statements are read from the source and every
+instruction is executed on 32-bit words with the carry flag, which starts
+undefined in each statement (so a chain that took its carry from another
+statement would fail). An instruction that writes no carry must not
+overflow. The result is held against the integer (a b + m p) / 2^384.
+
+The schedule. `_schedule_host` runs a lane as the kernel does with R roles:
+the level-1 products (operand tables read from the source), the derive
+jobs, the level-2 products (table read from the source), the final sums,
+each step's values exchanged through a dict that stands for shared memory,
+each role taking items r, r + R, ... Masked lanes copy the accumulator. It
+is held against the port's plain `_add_plain` / `_add_sel_plain` and
+against the JAX package's `add_lf` / `add_sel_lf` on seeded lanes with the
+planted kinds of chip_smoke.py's `_g1_inputs`. Tolerance 0: field elements
+after normalize, masked lanes bit for bit.
+"""
+
+import pathlib
+import random
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aleo_tpu import params
+from aleo_tpu.curves import g1_fused as jgf
+from aleo_tpu_torch import _build
+from aleo_tpu_torch.curves import g1_fused as tgf
+from aleo_tpu_torch.fields import limbs
+
+torch.set_num_threads(2)        # several test workers share the machine
+
+Q = params.Q
+L = params.FQ_LIMBS
+R384 = 1 << 384
+U32 = (1 << 32) - 1
+NPRIME = (-pow(Q, -1, R384)) % R384
+CSRC = pathlib.Path(_build.CSRC_DIR)
+
+
+# -- the product: the header's PTX, instruction by instruction ---------------------
+
+
+def _function(src: str, name: str) -> str:
+    return re.search(r"void " + name + r"\((?:.*?)\) \{(.*?)\n\}", src, re.S).group(1)
+
+
+def _asm_blocks(body: str):
+    """asm statements of a function body -> [(instructions, operands)], an
+    operand being (constraint, expression) in the statement's numbering."""
+    out = []
+    for stmt in re.findall(r"asm\((.*?)\);\n", body + "\n", re.S):
+        text, _, rest = stmt.partition(":")
+        code = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', text)).replace("\\n\\t", "")
+        instrs = [i.strip() for i in code.split(";") if i.strip()]
+        ops = re.findall(r'"(\+r|=r|r)"\(([^)]*)\)', rest)
+        out.append((instrs, ops))
+    return out
+
+
+def _header():
+    src = (CSRC / "fq_mul_ptx.cuh").read_text()
+    consts = {k: int(v, 16) for k, v in re.findall(r"#define (FQX_P\d+) 0x([0-9a-f]+)u", src)}
+    blocks = {fn: _asm_blocks(_function(src, fn)) for fn in ("fqx_row", "fqx_redc", "fq_mul_ptx")}
+    return consts, blocks
+
+
+CONSTS, BLOCKS = _header()
+
+
+def _execute(block, env):
+    """One asm statement on the host. env maps names to ints or lists of
+    ints; the statement's operands are read first and its outputs written
+    back last, as registers bound to them would be."""
+    instrs, ops = block
+
+    def read(expr):
+        m = re.fullmatch(r"(\w+)\[(\d+)\]", expr)
+        return env[m.group(1)][int(m.group(2))] if m else env[expr]
+
+    regs = [None if c == "=r" else read(e) for c, e in ops]
+    cf = None                               # undefined at the start of a statement
+
+    def val(tok):
+        return regs[int(tok[1:])] if tok.startswith("%") else int(tok, 0)
+
+    for ins in instrs:
+        op, args = ins.split(None, 1)
+        args = [a.strip() for a in args.split(",")]
+        parts = op.split(".")
+        base, cc = parts[0], "cc" in parts
+        carry_in = base in ("addc", "madc")
+        if carry_in:
+            assert cf is not None, f"{ins}: the carry comes from another statement"
+        x, y = val(args[1]), val(args[2])
+        assert x is not None and y is not None, f"{ins}: reads an undefined register"
+        if base in ("add", "addc"):
+            s = x + y
+        else:
+            prod = x * y
+            s = (prod & U32 if "lo" in parts else prod >> 32) + val(args[3])
+        s += cf if carry_in else 0
+        if cc:
+            cf = s >> 32
+        else:
+            assert s >> 32 == 0, f"{ins}: a carry would be lost"
+        regs[int(args[0][1:])] = s & U32
+    for (c, e), v in zip(ops, regs):
+        if c != "r":
+            m = re.fullmatch(r"(\w+)\[(\d+)\]", e)
+            env[m.group(1)][int(m.group(2))] = v
+
+
+def _words(x):
+    return [(x >> (32 * i)) & U32 for i in range(12)]
+
+
+def _row(e, o, a, bi):
+    for block in BLOCKS["fqx_row"]:
+        _execute(block, {"e": e, "o": o, "a": a, "bi": bi})
+
+
+def _redc(e, o):
+    env = {"e": e, "o": o, "mi": (-e[0]) & U32, **CONSTS}
+    for block in BLOCKS["fqx_redc"]:
+        _execute(block, env)
+
+
+def _mul_ptx_host(x: int, y: int) -> int:
+    """fq_mul_ptx on the host, statement for statement (fqx_row_first and
+    the row loop are the header's C, spelled here)."""
+    a, b = _words(x), _words(y)
+    e = [0] * 12
+    o = [0] * 12
+    for j in range(0, 12, 2):                       # fqx_row_first
+        e[j], e[j + 1] = (a[j] * b[0]) & U32, (a[j] * b[0]) >> 32
+        o[j], o[j + 1] = (a[j + 1] * b[0]) & U32, (a[j + 1] * b[0]) >> 32
+    _redc(e, o)
+    for i in range(1, 12, 2):
+        _row(o, e, a, b[i])
+        _redc(o, e)
+        if i + 1 < 12:
+            _row(e, o, a, b[i + 1])
+            _redc(e, o)
+    (merge,) = BLOCKS["fq_mul_ptx"]
+    _execute(merge, {"e": e, "o": o})
+    return sum(w << (32 * i) for i, w in enumerate(e))
+
+
+def _mont(x: int, y: int) -> int:
+    """The one integer a Montgomery product without a final subtraction gives."""
+    m = x * y * NPRIME % R384
+    t = x * y + m * Q
+    assert t % R384 == 0
+    return t // R384
+
+
+EDGE = [0, 1, Q - 1, Q, Q + 1, 2 * Q - 1, 2 * Q, (1 << 384) % Q]
+
+
+def test_ptx_constants_are_the_words_of_p():
+    words = _words(Q)
+    assert words[0] == 1, "fq_mul_ptx takes p[0] = 1 for granted"
+    assert (-pow(Q, -1, 1 << 32)) % (1 << 32) == U32, "and N' = 2^32 - 1"
+    assert CONSTS == {f"FQX_P{i}": words[i] for i in range(1, 12)}
+
+
+def test_ptx_statements_keep_their_carries_to_themselves():
+    """Every chain starts with an instruction that reads no carry and ends
+    with one that writes none: the compiler may put anything between two
+    statements."""
+    n = 0
+    for blocks in BLOCKS.values():
+        for instrs, ops in blocks:
+            assert instrs[0].split()[0] in ("add.cc.u32", "mad.lo.cc.u32"), instrs[0]
+            assert ".cc" not in instrs[-1].split()[0], instrs[-1]
+            assert len(ops) <= 30
+            n += 1
+    assert n == 2 + 2 + 1
+
+
+@pytest.mark.parametrize("which", ["edges", "random"])
+def test_ptx_product_is_the_montgomery_integer(which):
+    rng = random.Random(384)
+    if which == "edges":
+        pairs = [(x, y) for x in EDGE for y in EDGE]
+    else:
+        pairs = [(rng.randrange(2 * Q), rng.randrange(2 * Q)) for _ in range(300)]
+        pairs += [(2 * Q - 1 - rng.randrange(1 << 64), 2 * Q - rng.randrange(1 << 32))
+                  for _ in range(20)]
+    for x, y in pairs:
+        got = _mul_ptx_host(x, y)
+        assert got == _mont(x, y), (x, y)
+        assert got < 2 * Q
+
+
+# -- the schedule: roles, steps and exchanges as the kernel runs them --------------
+
+
+def _table(name):
+    src = (CSRC / "g1_fused.cu").read_text()
+    body = re.search(r"int8_t " + name + r"\[\d+\]\[\d+\] = \{(.*?)\};", src, re.S).group(1)
+    return [tuple(int(v) for v in row.split(","))
+            for row in re.findall(r"\{([-\d, ]+)\}", body)]
+
+
+ADD_L1, MADD_L1, L2 = _table("G1S_ADD_L1"), _table("G1S_MADD_L1"), _table("G1S_L2")
+P2 = 2 * Q
+
+
+def _add(a, b):
+    s = a + b
+    return s - P2 if s >= P2 else s
+
+
+def _sub(a, b):
+    s = a + P2 - b
+    return s - P2 if s >= P2 else s
+
+
+def _mul3(a):
+    s = 3 * a
+    s = s - P2 if s >= P2 else s
+    return s - P2 if s >= P2 else s
+
+
+class _Shared(dict):
+    """Shared memory of one step: a slot is written once, and read only in
+    a later step."""
+
+    def put(self, k, v):
+        assert k not in self, f"slot {k} written twice"
+        self[k] = v
+
+
+def _add_derive(j, s1, s2, pt):
+    if j == 4:
+        b = _mul3(s1[2])
+        s2.put(4, _add(s1[1], b))
+        s2.put(5, _sub(s1[1], b))
+    elif j == 3:
+        s2.put(3, _mul3(s1[0]))
+    else:
+        u, w = (1 if j == 1 else 0), (1 if j == 0 else 2)
+        d = _sub(s1[3 + j], _add(s1[u], s1[w]))
+        s2.put(j, _mul3(d) if j == 2 else d)
+
+
+def _madd_derive(j, s1, s2, pt):
+    x1, y1, z1 = pt
+    if j == 0:
+        s2.put(0, _sub(s1[2], _add(s1[0], s1[1])))
+    elif j == 1:
+        s2.put(1, _add(s1[3], y1))
+    elif j == 2:
+        s2.put(2, _mul3(_add(s1[4], x1)))
+    elif j == 3:
+        s2.put(3, _add(_add(s1[0], s1[0]), s1[0]))
+    else:
+        b = _mul3(z1)
+        s2.put(4, _add(s1[1], b))
+        s2.put(5, _sub(s1[1], b))
+
+
+def _operand(coords, u, w, neg_y):
+    pick = lambda k: (P2 - coords[k]) if (k == 1 and neg_y) else coords[k]
+    return _add(pick(u), pick(w)) if w >= 0 else pick(u)
+
+
+def _schedule_host(roles, acc, addend, mixed, sign=0, valid=1, mul=_mul_ptx_host):
+    """One lane of g1s_body with `roles` roles -> (x3, y3, z3) as ints."""
+    if mixed and (not valid or addend[1] == 0):
+        return acc                                  # the copy, split over roles
+    neg_y = bool(mixed and sign)
+    l1, derive = (MADD_L1, _madd_derive) if mixed else (ADD_L1, _add_derive)
+    s1, s2, s3 = _Shared(), _Shared(), _Shared()
+    for r in range(roles):                          # level 1
+        for j in range(r, len(l1), roles):
+            u1, v1, u2, v2 = l1[j]
+            s1.put(j, mul(_operand(acc, u1, v1, False), _operand(addend, u2, v2, neg_y)))
+    for r in range(roles):                          # __syncthreads, derive
+        for j in range(r, 5, roles):
+            derive(j, s1, s2, acc)
+    for r in range(roles):                          # __syncthreads, level 2
+        for j in range(r, 6, roles):
+            s3.put(j, mul(s2[L2[j][0]], s2[L2[j][1]]))
+    out = [None] * 3
+    for r in range(roles):                          # __syncthreads, final
+        for c in range(r, 3, roles):
+            out[c] = (_sub if c == 0 else _add)(s3[2 * c], s3[2 * c + 1])
+    return tuple(out)
+
+
+KINDS = ("P+P", "P+(-P) by value", "P+(-P) by sign", "identity+P", "P+identity",
+         "identity+identity, z=0", "identity+identity, z=p", "sentinel addend",
+         "invalid lane", "P+P, lazy representatives")
+
+
+def _lanes(rng, m):
+    """chip_smoke.py's _g1_inputs on host integers: random lazy lanes with
+    every kind of KINDS planted in turn."""
+    one = (1 << 384) % Q
+    c = {k: [rng.randrange(2 * Q) for _ in range(m)] for k in ("x1", "y1", "z1", "x2", "z2")}
+    c["y2"] = [rng.randrange(1, 2 * Q) for _ in range(m)]
+    sign = [rng.randrange(2) for _ in range(m)]
+    valid = [1] * m
+    period = max(1, min(97, m // len(KINDS)))
+    for k in range(0, m, period):
+        kind = (k // period) % len(KINDS)
+        a, b = c["x1"][k] % Q, c["y1"][k] % Q or 1
+        c["x1"][k], c["y1"][k], c["z1"][k] = a, b, one
+        c["x2"][k], c["y2"][k], c["z2"][k], sign[k] = a, b, one, 0
+        if kind == 1:
+            c["y2"][k] = Q - b
+        elif kind == 2:
+            sign[k] = 1
+        elif kind == 3:
+            c["x1"][k], c["y1"][k], c["z1"][k] = 0, one, 0
+        elif kind == 4:
+            c["x2"][k], c["y2"][k], c["z2"][k] = 0, 0, 0
+        elif kind == 5:
+            c["x1"][k], c["y1"][k], c["z1"][k] = 0, one, 0
+            c["x2"][k], c["y2"][k], c["z2"][k] = 0, one, 0
+        elif kind == 6:
+            c["x1"][k], c["y1"][k], c["z1"][k] = Q, one + Q, Q
+            c["x2"][k], c["y2"][k], c["z2"][k] = Q, one, Q
+        elif kind == 7:
+            c["x2"][k], c["y2"][k], sign[k] = 0, 0, 1
+        elif kind == 8:
+            valid[k], c["y1"][k] = 0, 2 * Q
+        elif kind == 9:
+            c["x2"][k], c["y2"][k], c["z1"][k] = a + Q, b + Q, one + Q
+    return c, sign, valid
+
+
+def _t(vals):
+    return limbs.to_tensor(limbs.ints_to_limbs(vals, L).T, "cpu")
+
+
+def _ints(t):
+    return limbs.limbs_to_ints(np.asarray(t).astype(np.int64).T)
+
+
+def _j(vals):
+    return jnp.asarray(limbs.ints_to_limbs([v % Q for v in vals], L).T.astype(np.uint32))
+
+
+@pytest.fixture(scope="module")
+def lanes():
+    c, sign, valid = _lanes(random.Random(20240229 + 11), 40)
+    return {"c": c, "sign": sign, "valid": valid}
+
+
+@pytest.mark.parametrize("roles", [2, 3, 6])
+def test_add_schedule_matches_plain_and_jax(lanes, roles):
+    c = lanes["c"]
+    m = len(c["x1"])
+    got = [_schedule_host(roles, (c["x1"][k], c["y1"][k], c["z1"][k]),
+                          (c["x2"][k], c["y2"][k], c["z2"][k]), mixed=False)
+           for k in range(m)]
+    plain = tgf._add_plain(*(_t(c[k]) for k in ("x1", "y1", "z1", "x2", "y2", "z2")))
+    ref = jgf.add_lf(jgf.G1LF(_j(c["x1"]), _j(c["y1"]), _j(c["z1"])),
+                     jgf.G1LF(_j(c["x2"]), _j(c["y2"]), _j(c["z2"])))
+    for i in range(3):
+        mine = [g[i] for g in got]
+        assert all(v < 2 * Q for v in mine)
+        assert [v % Q for v in mine] == [v % Q for v in _ints(plain[i])]
+        assert [v % Q for v in mine] == [v % Q for v in _ints(ref[i])]
+
+
+@pytest.mark.parametrize("roles", [2, 3, 6])
+def test_add_sel_schedule_matches_plain_and_jax(lanes, roles):
+    c, sign, valid = lanes["c"], lanes["sign"], lanes["valid"]
+    m = len(c["x1"])
+    got = [_schedule_host(roles, (c["x1"][k], c["y1"][k], c["z1"][k]), (c["x2"][k], c["y2"][k]),
+                          mixed=True, sign=sign[k], valid=valid[k])
+           for k in range(m)]
+    flag = lambda v: torch.tensor([v], dtype=torch.int32)
+    plain = tgf._add_sel_plain(*(_t(c[k]) for k in ("x1", "y1", "z1", "x2", "y2")),
+                               flag(sign), flag(valid))
+    ref = jgf.add_sel_lf(jgf.G1LF(_j(c["x1"]), _j(c["y1"]), _j(c["z1"])),
+                         _j(c["x2"]), _j(c["y2"]),
+                         jnp.asarray(np.array(sign, dtype=np.uint32)),
+                         jnp.asarray(np.array(valid, dtype=np.uint32)))
+    masked = [k for k in range(m) if not valid[k] or c["y2"][k] == 0]
+    assert 0 < len(masked) < m
+    for i, name in enumerate(("x1", "y1", "z1")):
+        mine = [g[i] for g in got]
+        assert [mine[k] for k in masked] == [c[name][k] for k in masked]   # bit for bit
+        assert [v % Q for v in mine] == [v % Q for v in _ints(plain[i])]
+        assert [v % Q for v in mine] == [v % Q for v in _ints(ref[i])]
+
+
+def test_schedule_tables_have_the_products_of_their_algorithms():
+    """12 products for Alg. 7 and 11 for Alg. 8, each level's operands
+    distinct; level 2 reads every derived value twice."""
+    assert len(ADD_L1) + len(L2) == 12 and len(MADD_L1) + len(L2) == 11
+    assert len(set(ADD_L1)) == 6 and len(set(MADD_L1)) == 5
+    assert sorted(v for pair in L2 for v in pair) == sorted(list(range(6)) * 2)
+    assert all(u2 < 2 and v2 < 2 for _, _, u2, v2 in MADD_L1), "an affine addend has no z"
