@@ -30,6 +30,7 @@
 
 #include "fq.cuh"
 #include "fq_inv.cuh"
+#include "fq_mul_ptx.cuh"
 
 #define THREADS 128
 
@@ -131,15 +132,31 @@ fq_prepare_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
 // against 3 products (~860 multiply-adds): memory traffic, by about two to
 // one at the card's rates. The loads are ordered so that at most five values
 // (lam, x1, x2, x3 and a temporary) are live at once: 80 registers, no spill.
+//
+// A launch of the main path is one wave in which every warp runs the same
+// sequence, so the loads and the products of all warps fall into the same
+// phases and their times add. The products are fq_mul_ptx (fq_mul_ptx.cuh):
+// fq_mul's integer in 800 instructions instead of 1358, which shortens the
+// product phases. Issuing the loads earlier did not overlap the phases on
+// an H100: a value's 24 limbs lie in 24 rows of the limbs-first layout, so
+// an early load lands only with its last row, and cp.async copies into
+// shared memory (all groups at the start, or one group ahead) were slower
+// than these loads (PERF.md, K5). FQA_LANES threads a block, one a lane: 32
+// and 64 are as fast, 128 is 2 % and 256 12 % slower at 50688 lanes
+// (scripts/torch_g1_variants.py).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+#ifndef FQA_LANES
+#define FQA_LANES 32
+#endif
+
+__global__ void __launch_bounds__(FQA_LANES)
 fq_apply_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
                 const int* __restrict__ inf1p, const int* __restrict__ x2p,
                 const int* __restrict__ y2p, const int* __restrict__ signp,
                 const int* __restrict__ casep, const int* __restrict__ nump,
                 const int* __restrict__ invp, int* __restrict__ oxp,
                 int* __restrict__ oyp, int* __restrict__ oinfp, int M) {
-    long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    long m = (long)blockIdx.x * FQA_LANES + threadIdx.x;
     if (m >= M) return;
     long ld = M;
     int cs = casep[m];
@@ -148,12 +165,12 @@ fq_apply_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
     uint32_t lam[FQ_WORDS], t[FQ_WORDS];
     fq_load(lam, nump, ld, m);
     fq_load(t, invp, ld, m);
-    fq_mul(lam, lam, t);                        // lam = num * inv
+    fq_mul_ptx(lam, lam, t);                    // lam = num * inv
 
     uint32_t x1[FQ_WORDS], x2[FQ_WORDS], x3[FQ_WORDS];
     fq_load(x1, x1p, ld, m);
     fq_load(x2, x2p, ld, m);
-    fq_sq(t, lam);
+    fq_mul_ptx(t, lam, lam);
     fq_sub(t, t, x1);
     fq_sub(x3, t, x2);                          // x3 = lam^2 - x1 - x2
 
@@ -165,7 +182,7 @@ fq_apply_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
     uint32_t y1[FQ_WORDS], y2[FQ_WORDS];
     fq_load(y1, y1p, ld, m);
     fq_sub(t, x1, x3);
-    fq_mul(t, lam, t);
+    fq_mul_ptx(t, lam, t);
     fq_sub(x3, t, y1);                          // y3 = lam (x1 - x3) - y1
 
     fq_load(y2, y2p, ld, m);
@@ -379,8 +396,9 @@ extern "C" int fq_apply_launch(const int* x1, const int* y1, const int* inf1, co
                                const int* inv, int* ox, int* oy, int* oinf, int M,
                                void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    fq_apply_kernel<<<blocks_for(M), THREADS, 0, (cudaStream_t)stream>>>(
-        x1, y1, inf1, x2, y2, sign, cs, num, inv, ox, oy, oinf, M);
+    fq_apply_kernel<<<(unsigned)((M + FQA_LANES - 1) / FQA_LANES), FQA_LANES, 0,
+                      (cudaStream_t)stream>>>(x1, y1, inf1, x2, y2, sign, cs, num, inv, ox, oy,
+                                              oinf, M);
     return (int)cudaGetLastError();
 }
 

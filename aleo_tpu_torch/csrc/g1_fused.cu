@@ -11,9 +11,10 @@
 //   g1_add_sel_proj  <- _build_add_sel_proj  (masked, signed Alg. 7)
 //   g1_normalize     <- _build_normalize     (lk.normalize on x, y, z)
 //
-// g1_double, g1_add_sel_proj and g1_normalize run one thread per lane on
-// fq_mul (mont.cuh). g1_add and g1_add_sel spread a lane over G1S_ROLES
-// threads and use fq_mul_ptx (fq_mul_ptx.cuh); their section below says why.
+// g1_double and g1_normalize run one thread per lane, g1_double on fq_mul
+// (mont.cuh). The three adders (g1_add, g1_add_sel, g1_add_sel_proj) spread
+// a lane over G1S_ROLES threads and use fq_mul_ptx (fq_mul_ptx.cuh); their
+// section below says why.
 //
 // The curve is y^2 = x^3 + 1 (a = 0, b3 = 3). The formulas are complete:
 // doubling, inverse pairs and the identity (z = 0, as the limbs of 0 or of p)
@@ -37,13 +38,13 @@
 // of 2 x 144 32x32->64 multiply-adds: at the card's rates the multiply-adds
 // take about 1.6 times as long as the bytes, so the three adders and the
 // doubling are bound by operations; g1_normalize does no product and is
-// bound by bytes. The one-thread kernels write nothing to memory between
-// the products of one group operation, read the inputs once, coalesced
-// (limbs first), and order the products so that the six input coordinates
-// die as early as the formulas allow. Measured on an H100 they take 5 to 6
-// times that bound: the carries of fq_mul form one dependent chain of 288
-// multiply-add steps, and the 12 warps an SM holds at this register count
-// do not hide its latency (one warp alone needs 3.5 us for one product).
+// bound by bytes. g1_double writes nothing to memory between its
+// products, reads the inputs once, coalesced (limbs first), and orders the
+// products so that the input coordinates die as early as the formula
+// allows. Measured on an H100 it takes 3 times that bound: the carries of
+// fq_mul form one dependent chain of 288 multiply-add steps, and the 12
+// warps an SM holds at this register count do not hide its latency (one
+// warp alone needs 3.5 us for one product).
 //
 // Out of place only: an output must not alias an input (the pointers are
 // __restrict__).
@@ -54,9 +55,9 @@
 // synchronise, and returns cudaGetLastError().
 //
 // Registers per thread (nvcc 12.8, -O3, sm_90a, -Xptxas -v): 168 for
-// g1_double and g1_add_sel_proj (the cap below; spill stores of 20 and 172
-// bytes), 88 for g1_normalize, 80 for g1_add and g1_add_sel (no spill). The
-// build log of every run is printed by chip_smoke.py's device phase.
+// g1_double (the cap below; spill stores of 20 bytes), 88 for g1_normalize,
+// 80 for the three adders (no spill). The build log of every run is
+// printed by chip_smoke.py's device phase.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,13 +67,11 @@
 
 // Threads a block, and the blocks an SM must be able to hold (which caps the
 // registers a thread may use: 65536 / (G1_THREADS * G1_MIN_BLOCKS)).
-// Left alone the compiler takes 188 to 242 registers for the one-thread
-// group operations and spills nothing, but then an SM holds 8 warps and the 1408
-// warps of a 45056-lane launch need two waves. Three blocks an SM cap a
-// thread at 168 registers: 20 to 172 bytes of spills, 12 warps an SM, one
-// wave, and every kernel is faster (g1_double 1.8x, the adders 1.1 to 1.2x;
-// four blocks, 128 registers, spill 200 to 860 bytes and are slower again).
-// scripts/torch_g1_variants.py times these choices.
+// Left alone the compiler takes 188 registers for g1_double and spills
+// nothing, but then an SM holds 8 warps and the 1408 warps of a 45056-lane
+// launch need two waves. Three blocks an SM cap a thread at 168 registers:
+// 20 bytes of spills, 12 warps an SM, one wave, and 1.8x faster (four
+// blocks, 128 registers, spill 200 bytes and more and are slower again).
 #ifndef G1_THREADS
 #define G1_THREADS 128
 #endif
@@ -81,50 +80,8 @@
 #endif
 
 // ---------------------------------------------------------------------------
-// the three formulas, on registers
+// the doubling, on registers
 // ---------------------------------------------------------------------------
-
-// RCB16 Algorithm 7 (a = 0, b3 = 3): (x3, y3, z3) = (x1, y1, z1) + (x2, y2, z2).
-// 12 products, 3 mul3. Outputs must not alias inputs.
-__device__ __forceinline__ void g1_add_core(
-    uint32_t x3[FQ_WORDS], uint32_t y3[FQ_WORDS], uint32_t z3[FQ_WORDS],
-    const uint32_t x1[FQ_WORDS], const uint32_t y1[FQ_WORDS], const uint32_t z1[FQ_WORDS],
-    const uint32_t x2[FQ_WORDS], const uint32_t y2[FQ_WORDS], const uint32_t z2[FQ_WORDS]) {
-    uint32_t t0[FQ_WORDS], t1[FQ_WORDS], t2[FQ_WORDS], t3[FQ_WORDS], t4[FQ_WORDS];
-    uint32_t a[FQ_WORDS], b[FQ_WORDS];
-    fq_mul(t0, x1, x2);
-    fq_mul(t1, y1, y2);
-    fq_add(a, x1, y1);
-    fq_add(b, x2, y2);
-    fq_mul(t3, a, b);
-    fq_add(a, t0, t1);
-    fq_sub(t3, t3, a);                          // t3 = (x1+y1)(x2+y2) - t0 - t1
-    fq_mul(t2, z1, z2);
-    fq_add(a, y1, z1);
-    fq_add(b, y2, z2);
-    fq_mul(t4, a, b);
-    fq_add(a, t1, t2);
-    fq_sub(t4, t4, a);                          // t4 = (y1+z1)(y2+z2) - t1 - t2
-    fq_add(a, x1, z1);
-    fq_add(b, x2, z2);
-    fq_mul(y3, a, b);
-    fq_add(a, t0, t2);
-    fq_sub(y3, y3, a);                          // y3 = (x1+z1)(x2+z2) - t0 - t2
-    fq_mul3(t0, t0);
-    fq_mul3(t2, t2);                            // b3 * t2
-    fq_add(z3, t1, t2);
-    fq_sub(t1, t1, t2);
-    fq_mul3(y3, y3);                            // b3 * y3
-    fq_mul(a, t4, y3);
-    fq_mul(b, t3, t1);
-    fq_sub(x3, b, a);                           // x3 = t3 t1 - t4 y3
-    fq_mul(a, y3, t0);
-    fq_mul(b, t1, z3);
-    fq_add(y3, b, a);                           // y3 = t1 z3 + y3 t0
-    fq_mul(a, t0, t3);
-    fq_mul(b, z3, t4);
-    fq_add(z3, b, a);                           // z3 = z3 t4 + t0 t3
-}
 
 // RCB16 Algorithm 9 (a = 0, b3 = 3): 2 (x, y, z). 8 products, 2 mul3.
 // Outputs must not alias inputs.
@@ -152,13 +109,6 @@ __device__ __forceinline__ void g1_double_core(
     fq_add(x3, a, a);                           // x3 = 2 t0 x y
 }
 
-// copy one lane of a coordinate, stored words as they are
-__device__ __forceinline__ void lane_copy(int* __restrict__ dst, const int* __restrict__ src,
-                                          long ld, long m) {
-#pragma unroll
-    for (int l = 0; l < FQ_LIMBS; l++) dst[(long)l * ld + m] = src[(long)l * ld + m];
-}
-
 // ---------------------------------------------------------------------------
 // g1_double: (x, y, z) -> 2 (x, y, z).
 // Bound: 6 x 24 words a lane (576 B) against 8 products: operations.
@@ -182,7 +132,8 @@ g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
 }
 
 // ---------------------------------------------------------------------------
-// g1_add and g1_add_sel: one lane spread over G1S_ROLES threads.
+// The three adders (g1_add, g1_add_sel, g1_add_sel_proj): one lane spread
+// over G1S_ROLES threads.
 //
 // Alg. 7 and Alg. 8 are two levels of independent products with cheap sums
 // between them:
@@ -207,28 +158,31 @@ g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
 // launch of L lanes has L / G1S_LANES blocks: 44 for the 1408-lane steps of
 // the bucket reduction, which ran on 11 blocks of 128 threads before.
 //
-// Every step computes what g1_add_core computes (the same sums in the same
-// order, the same products), so the result equals the plain version's limb
-// for limb after normalize. The operand tables below are read by
-// tests/test_torch_g1_hopper.py, whose host model runs the same schedule.
+// Every step computes what the plain versions compute (`_add_plain`,
+// `_madd_plain` of curves/g1_fused.py: the same sums in the same order, the
+// same products), so the result equals theirs limb for limb after
+// normalize. The operand tables below are read by
+// tests/test_torch_g1_hopper.py, whose host model runs the same schedule
+// in all three modes.
 //
-// Masks (g1_add_sel). A lane that is not valid, or whose addend is the
-// (0, 0) sentinel (y2's stored limbs all zero, before the negation), does
-// no product and at the end copies the accumulator's 72 stored words as
-// they are, split over the roles; a warp whose 32 lanes are all masked does
-// no product. Masked lanes and lanes past the ragged edge still reach every
-// barrier.
+// Masks. In g1_add_sel a lane that is not valid, or whose addend is the
+// (0, 0) sentinel (y2's stored limbs all zero, before the negation), and
+// in g1_add_sel_proj a lane that is not valid, does no product and at the
+// end copies the accumulator's 72 stored words as they are, split over the
+// roles; a warp whose 32 lanes are all masked does no product. Masked lanes
+// and lanes past the ragged edge still reach every barrier.
 //
 // Bound: g1_add 9 x 24 words a lane (864 B) against 12 products,
-// g1_add_sel 8 x 24 + 2 words (776 B) against 11 on the kept lanes:
-// operations, as for the one-thread kernels above.
+// g1_add_sel 8 x 24 + 2 words (776 B) against 11 on the kept lanes,
+// g1_add_sel_proj 9 x 24 + 2 words (872 B) against 12 on the valid lanes:
+// operations, as for g1_double above, where most lanes are kept.
 // ---------------------------------------------------------------------------
 
 // Roles, lanes a block, and the blocks an SM must hold (a cap of 85
 // registers; 80 are used, no spill). Of the variants that
 // scripts/torch_g1_variants.py tries (2, 3 or 6 roles, 32 or 64 lanes,
-// other caps), this one is the fastest at 22 and 1408 lanes and within 1 %
-// of the fastest at 45056 on an H100; more lanes or fewer roles lengthen a
+// other caps), this one is within 3 % of the fastest at 22, 1408 and
+// 45056 lanes on an H100; more lanes or fewer roles lengthen a
 // block's critical path, and G1S_LANES * 12 * 4 B * 12 values of shared
 // memory grow with the lanes.
 #ifndef G1S_ROLES
@@ -241,6 +195,10 @@ g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
 #define G1S_MIN_BLOCKS 4
 #endif
 #define G1S_THREADS (G1S_ROLES * G1S_LANES)
+// what g1s_body computes: Alg. 7 on every lane (g1_add), Alg. 8 with an
+// affine addend, the sign and the masks (g1_add_sel), Alg. 7 with the sign
+// and the valid mask (g1_add_sel_proj)
+enum G1sMode { G1S_ADD, G1S_MADD_SEL, G1S_ADD_SEL_PROJ };
 
 // level 1, product j = (acc[u1] (+ acc[v1])) x (addend[u2] (+ addend[v2])),
 // coordinates 0, 1, 2 = x, y, z; -1 = no second term. {u1, v1, u2, v2}
@@ -358,22 +316,21 @@ __device__ __forceinline__ void g1s_madd_derive(int j, const uint32_t* s1, uint3
     }
 }
 
-// Both kernels. MIXED: Alg. 8 with an affine addend (x2, y2), the sign and
-// the masks; else Alg. 7 on every lane.
-template <bool MIXED>
+template <G1sMode MODE>
 __device__ __forceinline__ void g1s_body(
     const int* __restrict__ x1p, const int* __restrict__ y1p, const int* __restrict__ z1p,
     const int* __restrict__ x2p, const int* __restrict__ y2p, const int* __restrict__ z2p,
     const int* __restrict__ signp, const int* __restrict__ validp, int* __restrict__ oxp,
     int* __restrict__ oyp, int* __restrict__ ozp, int M) {
     constexpr int V = FQ_WORDS * G1S_LANES;
+    constexpr bool MIXED = MODE == G1S_MADD_SEL;
     __shared__ uint32_t s1[6 * V], s2[6 * V];
     const int role = threadIdx.x / G1S_LANES, lane = threadIdx.x % G1S_LANES;
     const long m = (long)blockIdx.x * G1S_LANES + lane;
     const long ld = M;
     const bool live = m < M;
     bool keep = live, neg_y = false;
-    if constexpr (MIXED) {
+    if constexpr (MODE == G1S_MADD_SEL) {
         if (live) {
             int any = 0;
 #pragma unroll
@@ -381,9 +338,17 @@ __device__ __forceinline__ void g1s_body(
             neg_y = signp[m] != 0;
             keep = validp[m] != 0 && any != 0;
         }
+    } else if constexpr (MODE == G1S_ADD_SEL_PROJ) {
+        if (live) {
+            neg_y = signp[m] != 0;
+            keep = validp[m] != 0;
+        }
     }
     // level 1. A live lane loads its operands whether it is kept or not, so
-    // that these loads need not wait for the mask's.
+    // that these loads need not wait for the mask's. In g1_add_sel_proj,
+    // where one lane in 16 is valid, this is ~10 % faster on an H100 than
+    // loading the kept lanes alone, and within 1 % where all or half are: a
+    // warp whose lanes are mixed runs the products anyway.
     uint32_t a[FQ_WORDS], b[FQ_WORDS];
     constexpr int N1 = MIXED ? 5 : 6;
     for (int j = role; j < N1; j += G1S_ROLES) {
@@ -435,7 +400,7 @@ __device__ __forceinline__ void g1s_body(
         }
     }
     // a masked lane: the accumulator's stored words, split over the roles
-    if constexpr (MIXED) {
+    if constexpr (MODE != G1S_ADD) {
         if (live && !keep) {
             for (int k = role; k < 3 * FQ_LIMBS; k += G1S_ROLES) {
                 const int c = k / FQ_LIMBS, l = k % FQ_LIMBS;
@@ -455,7 +420,7 @@ g1_add_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
               const int* __restrict__ z1p, const int* __restrict__ x2p,
               const int* __restrict__ y2p, const int* __restrict__ z2p,
               int* __restrict__ oxp, int* __restrict__ oyp, int* __restrict__ ozp, int M) {
-    g1s_body<false>(x1p, y1p, z1p, x2p, y2p, z2p, nullptr, nullptr, oxp, oyp, ozp, M);
+    g1s_body<G1S_ADD>(x1p, y1p, z1p, x2p, y2p, z2p, nullptr, nullptr, oxp, oyp, ozp, M);
 }
 
 // ---------------------------------------------------------------------------
@@ -471,49 +436,23 @@ g1_add_sel_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
                   const int* __restrict__ y2p, const int* __restrict__ signp,
                   const int* __restrict__ validp, int* __restrict__ oxp,
                   int* __restrict__ oyp, int* __restrict__ ozp, int M) {
-    g1s_body<true>(x1p, y1p, z1p, x2p, y2p, nullptr, signp, validp, oxp, oyp, ozp, M);
+    g1s_body<G1S_MADD_SEL>(x1p, y1p, z1p, x2p, y2p, nullptr, signp, validp, oxp, oyp, ozp, M);
 }
 
 // ---------------------------------------------------------------------------
 // g1_add_sel_proj: acc (+)= (sign ? -P : P) where valid, else acc; P
 // projective (the merge of two bucket accumulators). No sentinel: an
 // identity addend has z = 0 and the complete law takes it.
-// Bound: 9 x 24 + 2 words a lane (872 B) against 12 products on the valid
-// lanes: operations where most lanes are valid, bytes where few are.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(G1_THREADS, G1_MIN_BLOCKS)
+__global__ void __launch_bounds__(G1S_THREADS, G1S_MIN_BLOCKS)
 g1_add_sel_proj_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
                        const int* __restrict__ z1p, const int* __restrict__ x2p,
                        const int* __restrict__ y2p, const int* __restrict__ z2p,
                        const int* __restrict__ signp, const int* __restrict__ validp,
                        int* __restrict__ oxp, int* __restrict__ oyp, int* __restrict__ ozp,
                        int M) {
-    long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (m >= M) return;
-    long ld = M;
-    if (validp[m] == 0) {
-        lane_copy(oxp, x1p, ld, m);
-        lane_copy(oyp, y1p, ld, m);
-        lane_copy(ozp, z1p, ld, m);
-        return;
-    }
-    uint32_t x1[FQ_WORDS], y1[FQ_WORDS], z1[FQ_WORDS];
-    uint32_t x2[FQ_WORDS], y2[FQ_WORDS], z2[FQ_WORDS];
-    uint32_t x3[FQ_WORDS], y3[FQ_WORDS], z3[FQ_WORDS];
-    fq_load(y2, y2p, ld, m);
-    if (signp[m] != 0) {
-        fq_neg(x3, y2);
-        fq_copy(y2, x3);
-    }
-    fq_load(x1, x1p, ld, m);
-    fq_load(x2, x2p, ld, m);
-    fq_load(y1, y1p, ld, m);
-    fq_load(z1, z1p, ld, m);
-    fq_load(z2, z2p, ld, m);
-    g1_add_core(x3, y3, z3, x1, y1, z1, x2, y2, z2);
-    fq_store(oxp, ld, m, x3);
-    fq_store(oyp, ld, m, y3);
-    fq_store(ozp, ld, m, z3);
+    g1s_body<G1S_ADD_SEL_PROJ>(x1p, y1p, z1p, x2p, y2p, z2p, signp, validp, oxp, oyp, ozp,
+                               M);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,7 +516,7 @@ extern "C" int g1_add_sel_proj_launch(const int* x1, const int* y1, const int* z
                                       const int* sign, const int* valid, int* ox, int* oy,
                                       int* oz, int M, void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    g1_add_sel_proj_kernel<<<g1_blocks(M), G1_THREADS, 0, (cudaStream_t)stream>>>(
+    g1_add_sel_proj_kernel<<<g1s_blocks(M), G1S_THREADS, 0, (cudaStream_t)stream>>>(
         x1, y1, z1, x2, y2, z2, sign, valid, ox, oy, oz, M);
     return (int)cudaGetLastError();
 }

@@ -11,7 +11,10 @@ Phases, each printing one JSON line with its seconds:
   kernels   fq_prepare, fq_mul, fq_apply each against its plain PyTorch
             version on the card (exact equality after normalize) at the lane
             grid of a 32768-point MSM, edge-case lanes planted among random
-            ones; fq_inv_up, fq_fermat (safegcd) and fq_inv_down, the batch
+            ones; fq_apply also at 1, 127, 129, 1001 and 180224 lanes with
+            every case code planted (from 8 lanes on), its stored limbs
+            equal to the plain version's and kept lanes bit for bit, timed
+            at 128 lanes too; fq_inv_up, fq_fermat (safegcd) and fq_inv_down, the batch
             inversion's three kernels, against theirs at that grid, at 1,
             129 and 1001 lanes and at the 180224 lanes of msm_batch_host
             (two levels of tiles), with 1, 2, p - 1, p + 1, 2p - 1, powers of
@@ -33,10 +36,14 @@ Phases, each printing one JSON line with its seconds:
             at the ragged widths 1, 22, 129 and 1001, with P + P, P + (-P),
             identities (z as 0 and as p), the (0, 0) sentinel, invalid lanes
             and lazy representatives planted among random lanes; at 22 lanes
-            also real curve points against the host group law. g1_add and
-            g1_add_sel (a lane over six threads) also at 704, 1408 and 22528
-            lanes, and timed at 22, 704 and 1408 lanes too, with their
-            registers and spills from the build log. fq_mul_canon,
+            also real curve points against the host group law. The three
+            adders g1_add, g1_add_sel and g1_add_sel_proj (a lane over six
+            threads) also at 704, 1408 and 22528 lanes, and timed at 22, 704
+            and 1408 lanes too; g1_add_sel_proj at every width with all
+            lanes valid, half, one in 16 and none besides the planted
+            invalid lanes, and timed at half and one in 16 valid. Registers,
+            spills and shared memory of fq_apply and the adders from the
+            build log. fq_mul_canon,
             fq_mul_chain12 and fr_mul each against its plain version, equal
             bit for bit (raw limbs, no normalize), at 2^16 elements and at
             1, 129 and 1001, with 0, 1, p - 1, p, 2p - 1 and the largest
@@ -153,6 +160,8 @@ M_SPREAD_WIDTHS = (704, 1408, 22528)
 M_FERMAT = ga.FERMAT_W                  # 128
 M_ROOTS = -(-M_GRID // ga.INV_TILE)     # 50 tile products at the grid's root
 M_TWO_LEVELS = 4 * 22 * 2048            # 180224: msm_batch_host's grid at k = 4
+# fq_apply's other widths: ragged tiles, and msm_batch_host's grid
+M_APPLY_WIDTHS = (1, 127, 129, 1001, M_TWO_LEVELS)
 # fq_fermat's multiply-adds a lane (csrc/fq_inv.cuh): a batch's matrix times f, g (4
 # products a limb) and d, e with their multiples of p (6), 32x32->64 each
 SAFEGCD_MADS = ga.SAFEGCD_BATCHES * 2 * (4 + 6) * ga.S30_LIMBS
@@ -299,7 +308,8 @@ def _grid_inputs(rng, m):
     """Random lazy (< 2p) accumulator and addend lanes with the rare cases
     planted: tangent (equal points, also with the +p representative),
     cancellation (P == -acc, by value and by sign), identities on either
-    side, the (0, 0) sentinel, invalid lanes."""
+    side, the (0, 0) sentinel, invalid lanes; a kind every 97 lanes, or
+    closer where m is small, so that every case code occurs from 8 lanes on."""
     x1 = [rng.randrange(2 * Q) for _ in range(m)]
     y1 = [rng.randrange(1, 2 * Q) for _ in range(m)]
     x2 = [rng.randrange(2 * Q) for _ in range(m)]
@@ -308,8 +318,9 @@ def _grid_inputs(rng, m):
     inf2 = [0] * m
     sign = [rng.randrange(2) for _ in range(m)]
     valid = [1] * m
-    for k in range(0, m, 97):
-        kind = (k // 97) % 8
+    period = max(1, min(97, m // 8))
+    for k in range(0, m, period):
+        kind = (k // period) % 8
         a, b = x1[k] % Q, y1[k] % Q or 1
         x1[k], y1[k] = a, b
         if kind == 0:      # tangent, same representative
@@ -331,6 +342,28 @@ def _grid_inputs(rng, m):
     flag = lambda v: torch.tensor([v], dtype=torch.int32, device=DEV)
     return (fq_tensor(x1), fq_tensor(y1), flag(inf1), fq_tensor(x2), fq_tensor(y2),
             flag(inf2), flag(sign), flag(valid))
+
+
+def _apply_check(rng, m):
+    """fq_apply against its plain version at m lanes, on the prepared
+    numerators and case codes of _grid_inputs and the true inverses of its
+    denominators -> (max_abs_err after normalize, stored limbs and flags
+    equal). Every case code is planted from 8 lanes on; the lanes of
+    CASE_KEEP must return the accumulator bit for bit."""
+    x1, y1, inf1, x2, y2, inf2, sign, valid = _grid_inputs(rng, m)
+    dp, nump, casep = ga._prepare_plain(x1, y1, inf1, x2, y2, inf2, sign, valid)
+    if m >= 8:
+        assert all(bool((casep == k).any()) for k in range(4)), f"a case has no lane at {m}"
+    inv = ga._fermat_plain(dp)
+    got = ga.fq_apply(x1, y1, inf1, x2, y2, sign, casep, nump, inv)
+    want = ga._apply_plain(x1, y1, inf1, x2, y2, sign, casep, nump, inv)
+    torch.cuda.synchronize()
+    keep = (casep == ga.CASE_KEEP)[0]
+    for g, a in zip(got, (x1, y1)):
+        assert torch.equal(g[:, keep], a[:, keep]), f"fq_apply changed a kept lane at {m}"
+    err = max(same(got[0], want[0]), same(got[1], want[1]),
+              int((got[2] - want[2]).abs().max().item()))
+    return err, all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def _madd_plain(x1, y1, inf1, x2, y2, inf2, sign, valid):
@@ -458,13 +491,19 @@ def phase_kernels():
     inv = ga._fermat_plain(dp)
     _inversion_kernels(res, rng, dp, inv)
 
-    # fq_apply, fed the true inverses of the prepared denominators
+    # fq_apply, fed the true inverses of the prepared denominators, at the
+    # grid's width and at M_APPLY_WIDTHS
     ox, oy, oinf = ga.fq_apply(x1, y1, inf1, x2, y2, sign, casep, nump, inv)
     px, py, pinf = ga._apply_plain(x1, y1, inf1, x2, y2, sign, casep, nump, inv)
     torch.cuda.synchronize()
     err = max(same(ox, px), same(oy, py), int((oinf - pinf).abs().max().item()))
+    raw = all(torch.equal(g, w) for g, w in zip((ox, oy, oinf), (px, py, pinf)))
+    for w in M_APPLY_WIDTHS:
+        e, r = _apply_check(rng, w)
+        err, raw = max(err, e), raw and r
     res["fq_apply"] = {
-        "max_abs_err": err, "lanes": m,
+        "max_abs_err": err, "lanes": m, "raw_limbs_equal": raw,
+        "widths": [m, *M_APPLY_WIDTHS],
         "ms": kernel_ms(lambda a: ga.fq_apply(*a),
                         copies((x1, y1, inf1, x2, y2, sign, casep, nump, inv), 4)),
         "plain_ms": cuda_ms(lambda: ga._apply_plain(x1, y1, inf1, x2, y2, sign, casep, nump, inv), 3),
@@ -479,6 +518,10 @@ def phase_kernels():
     wx, wy, winf = _madd_plain(x1, y1, inf1, x2, y2, inf2, sign, valid)
     assert same(got.x, wx) == 0 and same(got.y, wy) == 0
     madd_ms = cuda_ms(lambda: ga.madd(acc, x2, y2, inf2, sign, valid), 5)
+    narrow = tuple(t[:, :128].contiguous() for t in (x1, y1, inf1, x2, y2, sign, casep, nump, inv))
+    res["fq_apply"]["ms_128_lanes"] = kernel_ms(lambda a: ga.fq_apply(*a), copies(narrow, 4))
+    res["fq_apply"]["ptxas"] = _build.ptxas_info().get("fq_apply_kernel",
+                                                        "not built in this process")
     binv_ms = cuda_ms(lambda: ga.batch_inv_lf(dp), 5)
     torch.cuda.synchronize()
 
@@ -551,9 +594,21 @@ def same3(got, want):
     return max(same(g, w) for g, w in zip(got, want))
 
 
-def _g1_check(args, spread_only=False):
+def _valid_rows(rng, valid):
+    """K9's valid rows at the width of `valid` (1, M): as planted, all
+    valid, half, few (one lane in 16) and none, the last three drawn at
+    random."""
+    m = valid.shape[1]
+    row = lambda p: torch.tensor([[int(rng.random() < p) for _ in range(m)]],
+                                 dtype=torch.int32, device=DEV)
+    return {"planted": valid, "all": torch.ones_like(valid), "half": row(0.5),
+            "few": row(1 / 16), "none": torch.zeros_like(valid)}
+
+
+def _g1_check(args, rng, spread_only=False):
     """Each g1 kernel against its plain version on one set of inputs ->
-    {name: max_abs_err}; only g1_add and g1_add_sel if spread_only. Masked
+    {name: max_abs_err}; only the three adders (a lane over several threads)
+    if spread_only. g1_add_sel_proj under each of _valid_rows' rows. Masked
     lanes must hold the accumulator bit for bit."""
     x1, y1, z1, x2, y2, z2, sign, valid = args
     acc, addend = gf.G1LF(x1, y1, z1), gf.G1LF(x2, y2, z2)
@@ -563,16 +618,19 @@ def _g1_check(args, spread_only=False):
     masked = ((valid == 0) | (y2.amax(dim=0, keepdim=True) == 0))[0]
     for g, a in zip(got, acc):
         assert torch.equal(g[:, masked], a[:, masked]), "g1_add_sel changed a masked lane"
+    err["g1_add_sel_proj"] = 0
+    for vname, vrow in _valid_rows(rng, valid).items():
+        got = gf.add_sel_proj_lf(acc, addend, sign, vrow)
+        err["g1_add_sel_proj"] = max(err["g1_add_sel_proj"], same3(
+            got, gf._add_sel_proj_plain(x1, y1, z1, x2, y2, z2, sign, vrow)))
+        masked = (vrow == 0)[0]
+        for g, a in zip(got, acc):
+            assert torch.equal(g[:, masked], a[:, masked]), \
+                f"g1_add_sel_proj changed a masked lane ({vname} valid)"
     if spread_only:
         torch.cuda.synchronize()
         return err
     err["g1_double"] = same3(gf.double_lf(acc), gf._double_plain(x1, y1, z1))
-    got = gf.add_sel_proj_lf(acc, addend, sign, valid)
-    err["g1_add_sel_proj"] = same3(
-        got, gf._add_sel_proj_plain(x1, y1, z1, x2, y2, z2, sign, valid))
-    masked = (valid == 0)[0]
-    for g, a in zip(got, acc):
-        assert torch.equal(g[:, masked], a[:, masked]), "g1_add_sel_proj changed a masked lane"
     got, want = gf.normalize_lf(acc), gf._normalize_plain(x1, y1, z1)
     err["g1_normalize"] = max(int_err(g, w) for g, w in zip(got, want))
     torch.cuda.synchronize()
@@ -608,18 +666,18 @@ def _g1_kernels(res):
     m = M_PROJ
     args, counts = _g1_inputs(rng, m)
     assert min(counts) > 0, f"a planted kind has no lane: {counts}"
-    err = _g1_check(args)
+    err = _g1_check(args, rng)
     for w in (1, M_WINDOWS, 129, 1001):
         small, small_counts = _g1_inputs(rng, w)
         assert w < len(G1_KINDS) or min(small_counts) > 0, (w, small_counts)
-        for name, e in _g1_check(small).items():
+        for name, e in _g1_check(small, rng).items():
             err[name] = max(err[name], e)
-    # g1_add and g1_add_sel (a lane over several threads) also at more widths
-    # of the bucket reduction
+    # the three adders (a lane over several threads) also at more widths of
+    # the bucket reduction
     for w in M_SPREAD_WIDTHS:
         small, small_counts = _g1_inputs(rng, w)
         assert min(small_counts) > 0, (w, small_counts)
-        for name, e in _g1_check(small, spread_only=True).items():
+        for name, e in _g1_check(small, rng, spread_only=True).items():
             err[name] = max(err[name], e)
     _g1_on_the_curve(rng)
     x1, y1, z1, x2, y2, z2, sign, valid = args
@@ -654,16 +712,25 @@ def _g1_kernels(res):
         }
     # the narrow end of the bucket reduction: one lane for each window
     res["g1_double"]["ms_22_lanes"] = kernel_ms(specs["g1_double"][0], copies(narrow[:3], 4))
-    # g1_add and g1_add_sel at the reduction's narrow widths; registers and
-    # spills from the build log
+    # the three adders at the reduction's narrow widths; registers, spills
+    # and shared memory from the build log
     ptxas = _build.ptxas_info()
-    for name, cols in (("g1_add", range(6)), ("g1_add_sel", (0, 1, 2, 3, 4, 6, 7))):
+    for name, cols in (("g1_add", range(6)), ("g1_add_sel", (0, 1, 2, 3, 4, 6, 7)),
+                       ("g1_add_sel_proj", range(8))):
         for w in (M_WINDOWS, 704, 1408):
             part = tuple(args[i][:, :w].contiguous() for i in cols)
             res[name][f"ms_{w}_lanes"] = kernel_ms(specs[name][0], copies(part, 4))
         res[name]["ptxas"] = ptxas.get(name + "_kernel", "not built in this process")
     res["g1_add_sel"].update(kept_lanes=kept, planted=dict(zip(G1_KINDS, counts)))
     res["g1_add_sel_proj"]["valid_lanes"] = n_valid
+    # g1_add_sel_proj where half or few lanes are valid, as in the later
+    # steps of the top-window merge
+    rows = _valid_rows(rng, valid)
+    for vname in ("half", "few"):
+        a = (*args[:7], rows[vname])
+        res["g1_add_sel_proj"][f"ms_{vname}_valid"] = kernel_ms(specs["g1_add_sel_proj"][0],
+                                                                copies(a, 3))
+        res["g1_add_sel_proj"][f"{vname}_valid_lanes"] = int(rows[vname].sum().item())
 
 
 def _proto_operands(rng, m, p, bound, n_limbs):

@@ -1,5 +1,5 @@
-"""The Hopper form of g1_add and g1_add_sel (csrc/g1_fused.cu, g1s_body) on
-the CPU, through two host models.
+"""The Hopper forms of the three adders (csrc/g1_fused.cu, g1s_body) and of
+fq_apply (csrc/g1_affine.cu) on the CPU, through three host models.
 
 The product. `_mul_ptx_host` runs the inline PTX of csrc/fq_mul_ptx.cuh as
 the header spells it: the asm statements are read from the source and every
@@ -8,15 +8,24 @@ undefined in each statement (so a chain that took its carry from another
 statement would fail). An instruction that writes no carry must not
 overflow. The result is held against the integer (a b + m p) / 2^384.
 
-The schedule. `_schedule_host` runs a lane as the kernel does with R roles:
+The schedule. `_schedule_host` runs a lane as the kernel does with R roles,
+in each of g1s_body's three modes (g1_add, g1_add_sel, g1_add_sel_proj):
 the level-1 products (operand tables read from the source), the derive
 jobs, the level-2 products (table read from the source), the final sums,
 each step's values exchanged through a dict that stands for shared memory,
 each role taking items r, r + R, ... Masked lanes copy the accumulator. It
-is held against the port's plain `_add_plain` / `_add_sel_plain` and
-against the JAX package's `add_lf` / `add_sel_lf` on seeded lanes with the
-planted kinds of chip_smoke.py's `_g1_inputs`. Tolerance 0: field elements
-after normalize, masked lanes bit for bit.
+is held against the port's plain `_add_plain` / `_add_sel_plain` /
+`_add_sel_proj_plain` and against the JAX package's `add_lf` / `add_sel_lf`
+/ `add_sel_proj_lf` on seeded lanes with the planted kinds of
+chip_smoke.py's `_g1_inputs`. Tolerance 0: field elements after normalize,
+masked lanes bit for bit.
+
+fq_apply. `_apply_host` executes the statements of `fq_apply_kernel` as
+the source spells them (read from it): the loads, the products on
+`_mul_ptx_host`, the sums, selects and flags. It is held against the
+port's `_apply_plain` and the JAX package's `_apply_body` over all four
+case codes, on canonical inputs and lazy representatives. Tolerance 0: the
+stored limbs, before normalize.
 """
 
 import pathlib
@@ -29,8 +38,10 @@ import pytest
 import torch
 
 from aleo_tpu import params
+from aleo_tpu.curves import g1_affine as jga
 from aleo_tpu.curves import g1_fused as jgf
 from aleo_tpu_torch import _build
+from aleo_tpu_torch.curves import g1_affine as tga
 from aleo_tpu_torch.curves import g1_fused as tgf
 from aleo_tpu_torch.fields import limbs
 
@@ -273,11 +284,16 @@ def _operand(coords, u, w, neg_y):
     return _add(pick(u), pick(w)) if w >= 0 else pick(u)
 
 
-def _schedule_host(roles, acc, addend, mixed, sign=0, valid=1, mul=_mul_ptx_host):
-    """One lane of g1s_body with `roles` roles -> (x3, y3, z3) as ints."""
-    if mixed and (not valid or addend[1] == 0):
+MODES = ("add", "madd_sel", "add_sel_proj")      # G1S_ADD, G1S_MADD_SEL, G1S_ADD_SEL_PROJ
+
+
+def _schedule_host(roles, acc, addend, mode, sign=0, valid=1, mul=_mul_ptx_host):
+    """One lane of g1s_body<mode> with `roles` roles -> (x3, y3, z3) as ints."""
+    assert mode in MODES
+    mixed = mode == "madd_sel"
+    if mode != "add" and (not valid or (mixed and addend[1] == 0)):
         return acc                                  # the copy, split over roles
-    neg_y = bool(mixed and sign)
+    neg_y = bool(mode != "add" and sign)
     l1, derive = (MADD_L1, _madd_derive) if mixed else (ADD_L1, _add_derive)
     s1, s2, s3 = _Shared(), _Shared(), _Shared()
     for r in range(roles):                          # level 1
@@ -362,7 +378,7 @@ def test_add_schedule_matches_plain_and_jax(lanes, roles):
     c = lanes["c"]
     m = len(c["x1"])
     got = [_schedule_host(roles, (c["x1"][k], c["y1"][k], c["z1"][k]),
-                          (c["x2"][k], c["y2"][k], c["z2"][k]), mixed=False)
+                          (c["x2"][k], c["y2"][k], c["z2"][k]), "add")
            for k in range(m)]
     plain = tgf._add_plain(*(_t(c[k]) for k in ("x1", "y1", "z1", "x2", "y2", "z2")))
     ref = jgf.add_lf(jgf.G1LF(_j(c["x1"]), _j(c["y1"]), _j(c["z1"])),
@@ -379,7 +395,7 @@ def test_add_sel_schedule_matches_plain_and_jax(lanes, roles):
     c, sign, valid = lanes["c"], lanes["sign"], lanes["valid"]
     m = len(c["x1"])
     got = [_schedule_host(roles, (c["x1"][k], c["y1"][k], c["z1"][k]), (c["x2"][k], c["y2"][k]),
-                          mixed=True, sign=sign[k], valid=valid[k])
+                          "madd_sel", sign=sign[k], valid=valid[k])
            for k in range(m)]
     flag = lambda v: torch.tensor([v], dtype=torch.int32)
     plain = tgf._add_sel_plain(*(_t(c[k]) for k in ("x1", "y1", "z1", "x2", "y2")),
@@ -404,3 +420,212 @@ def test_schedule_tables_have_the_products_of_their_algorithms():
     assert len(set(ADD_L1)) == 6 and len(set(MADD_L1)) == 5
     assert sorted(v for pair in L2 for v in pair) == sorted(list(range(6)) * 2)
     assert all(u2 < 2 and v2 < 2 for _, _, u2, v2 in MADD_L1), "an affine addend has no z"
+
+
+@pytest.mark.parametrize("roles", [2, 3, 6])
+def test_add_sel_proj_schedule_matches_plain_and_jax(lanes, roles):
+    """g1_add_sel_proj: Alg. 7 with the sign on y2 and the valid mask alone
+    (an identity addend, z2 = 0, goes through the formula). One lane in
+    three is masked on top of the planted invalid lane."""
+    c, sign = lanes["c"], lanes["sign"]
+    m = len(c["x1"])
+    valid = [v if k % 3 else 0 for k, v in enumerate(lanes["valid"])]
+    got = [_schedule_host(roles, (c["x1"][k], c["y1"][k], c["z1"][k]),
+                          (c["x2"][k], c["y2"][k], c["z2"][k]), "add_sel_proj",
+                          sign=sign[k], valid=valid[k])
+           for k in range(m)]
+    flag = lambda v: torch.tensor([v], dtype=torch.int32)
+    plain = tgf._add_sel_proj_plain(*(_t(c[k]) for k in ("x1", "y1", "z1", "x2", "y2", "z2")),
+                                    flag(sign), flag(valid))
+    ref = jgf.add_sel_proj_lf(jgf.G1LF(_j(c["x1"]), _j(c["y1"]), _j(c["z1"])),
+                              jgf.G1LF(_j(c["x2"]), _j(c["y2"]), _j(c["z2"])),
+                              jnp.asarray(np.array(sign, dtype=np.uint32)),
+                              jnp.asarray(np.array(valid, dtype=np.uint32)))
+    masked = [k for k in range(m) if not valid[k]]
+    assert 0 < len(masked) < m and any(sign[k] for k in range(m) if valid[k])
+    for i, name in enumerate(("x1", "y1", "z1")):
+        mine = [g[i] for g in got]
+        assert [mine[k] for k in masked] == [c[name][k] for k in masked]   # bit for bit
+        assert all(mine[k] < 2 * Q for k in range(m) if valid[k])
+        assert [v % Q for v in mine] == [v % Q for v in _ints(plain[i])]
+        assert [v % Q for v in mine] == [v % Q for v in _ints(ref[i])]
+
+
+def test_adders_run_their_modes_on_the_role_split():
+    """Each adder kernel is g1s_body in its own mode and is launched with a
+    block of G1S_THREADS threads for G1S_LANES lanes, as the host model
+    assumes."""
+    src = (CSRC / "g1_fused.cu").read_text()
+    enum = re.search(r"enum G1sMode \{([^}]*)\}", src).group(1)
+    assert [v.strip() for v in enum.split(",")] == ["G1S_ADD", "G1S_MADD_SEL", "G1S_ADD_SEL_PROJ"]
+    for kernel, mode in (("g1_add", "G1S_ADD"), ("g1_add_sel", "G1S_MADD_SEL"),
+                         ("g1_add_sel_proj", "G1S_ADD_SEL_PROJ")):
+        body = re.search(r"\n" + kernel + r"_kernel\(.*?\) \{(.*?)\n\}", src, re.S).group(1)
+        assert re.fullmatch(r"\s*g1s_body<" + mode + r">\(.*\);\s*", body, re.S), kernel
+        launch = re.search(kernel + r"_kernel<<<(.*?)>>>", src).group(1)
+        assert launch.replace(" ", "") == "g1s_blocks(M),G1S_THREADS,0,(cudaStream_t)stream"
+    assert "fq_mul(" not in src.split("enum G1sMode")[1], "the adders' products are fq_mul_ptx"
+    # the masks of g1_add_sel_proj, as _schedule_host takes them: the sign on
+    # y2 and the valid word alone
+    proj = re.search(r"if constexpr \(MODE == G1S_ADD_SEL_PROJ\) \{\s*if \(live\) \{(.*?)\}",
+                     src, re.S).group(1)
+    assert sorted(" ".join(st.split()) for st in proj.split(";") if st.strip()) == [
+        "keep = validp[m] != 0", "neg_y = signp[m] != 0"]
+
+
+# -- fq_apply: the kernel's statements, executed on the host ------------------------
+
+
+def _apply_source():
+    src = (CSRC / "g1_affine.cu").read_text()
+    body = re.search(r"\nfq_apply_kernel\(.*?\) \{(.*?)\n\}", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    consts = {k: int(v) for k, v in re.findall(r"#define (CASE_\w+) (\d+)", src)}
+    return src, body, consts
+
+
+APPLY_SRC, APPLY_BODY, APPLY_CONSTS = _apply_source()
+APPLY_STATEMENTS = [" ".join(st.split()) for st in APPLY_BODY.split(";") if st.strip()]
+
+
+def _cond(expr, env):
+    """A C expression of the kernel: names, ==, !=, >=, ||, and reads p[m]
+    of a flag (env["lane"][p])."""
+    expr = re.sub(r"(\w+)\[m\]", lambda m: str(env["lane"][m.group(1)]), expr)
+    return eval(expr.replace("||", " or "), {}, env)
+
+
+def _apply_host(lane, mul=_mul_ptx_host):
+    """One lane of fq_apply_kernel, statement for statement as the source
+    spells it. lane maps the kernel's pointer names (x1p, ..., invp; flags
+    casep, signp, inf1p) to ints -> ({output pointer: int}, the number of
+    products). A value used before it was loaded or computed fails."""
+    env = {**APPLY_CONSTS, "lane": lane, "m": 0, "M": 1}
+    out, products = {}, 0
+
+    def run(st):
+        nonlocal products
+        if st.startswith("uint32_t "):
+            return
+        if m := re.fullmatch(r"if \((.+?)\) (.+)", st):
+            if _cond(m.group(1), env):
+                run(m.group(2))
+        elif st == "return":
+            raise AssertionError("the lane returned early")
+        elif st == "long m = (long)blockIdx.x * FQA_LANES + threadIdx.x":
+            env["m"] = 0                                    # the one lane, of one
+        elif m := re.fullmatch(r"(?:long|int|bool) (.*)", st):
+            for part in m.group(1).split(", "):
+                name, expr = part.split(" = ")
+                env[name] = _cond(expr, env)
+        elif m := re.fullmatch(r"fq_load\((\w+), (\w+), ld, m\)", st):
+            env[m.group(1)] = lane[m.group(2)]
+        elif m := re.fullmatch(r"fq_mul_ptx\((\w+), (\w+), (\w+)\)", st):
+            env[m.group(1)] = mul(env[m.group(2)], env[m.group(3)])
+            products += 1
+        elif m := re.fullmatch(r"fq_sub\((\w+), (\w+), (\w+)\)", st):
+            env[m.group(1)] = _sub(env[m.group(2)], env[m.group(3)])
+        elif m := re.fullmatch(r"fq_neg\((\w+), (\w+)\)", st):
+            env[m.group(1)] = P2 - env[m.group(2)]
+        elif m := re.fullmatch(r"fq_select\((\w+), (.+), (\w+), (\w+)\)", st):
+            env[m.group(1)] = env[m.group(3)] if _cond(m.group(2), env) else env[m.group(4)]
+        elif m := re.fullmatch(r"fq_store\((\w+), ld, m, (\w+)\)", st):
+            out[m.group(1)] = env[m.group(2)]
+        elif m := re.fullmatch(r"(\w+) = (\w+)", st):
+            env[m.group(1)] = _cond(m.group(2), env)
+        elif m := re.fullmatch(r"(\w+)\[m\] = (\w+)", st):
+            out[m.group(1)] = env[m.group(2)]
+        else:
+            raise AssertionError(f"fq_apply_kernel: no host model for `{st}`")
+
+    for st in APPLY_STATEMENTS:
+        run(st)
+    return out, products
+
+
+def _affine_lanes(rng, m):
+    """chip_smoke.py's _grid_inputs on host integers: random lazy lanes with
+    tangent, cancellation, identity and invalid lanes planted, a kind every
+    few lanes so that all four case codes occur."""
+    c = {k: [rng.randrange(2 * Q) for _ in range(m)] for k in ("x1", "x2")}
+    c.update({k: [rng.randrange(1, 2 * Q) for _ in range(m)] for k in ("y1", "y2")})
+    c.update(inf1=[0] * m, inf2=[0] * m, valid=[1] * m,
+             sign=[rng.randrange(2) for _ in range(m)])
+    for k in range(0, m, 3):
+        kind = (k // 3) % 8
+        a, b = c["x1"][k] % Q, c["y1"][k] % Q or 1
+        c["x1"][k], c["y1"][k] = a, b
+        c["x2"][k], c["y2"][k], c["sign"][k] = [(a, b, 0), (a + Q, Q - b, 1), (a, Q - b, 0),
+                                                (a + Q, b, 1)][kind % 4]
+        if kind == 4:
+            c["inf1"][k], c["x1"][k], c["y1"][k] = 1, 0, 0
+        elif kind == 5:
+            c["inf2"][k], c["x2"][k], c["y2"][k] = 1, 0, 0
+        elif kind == 6:
+            c["inf1"][k], c["inf2"][k], c["x1"][k], c["y1"][k] = 1, 1, 0, 0
+            c["x2"][k], c["y2"][k] = 0, 0
+        elif kind == 7:
+            c["valid"][k] = 0
+    return c
+
+
+@pytest.fixture(scope="module", params=["canonical", "lazy"])
+def apply_lanes(request):
+    """The inputs of fq_apply as madd gives them: fq_prepare's (plain)
+    numerators and case codes and the inverses of its denominators, at 48
+    seeded lanes; "lazy": then every operand but the flags lifted to its
+    other representative (v + p) on every other lane, each operand on lanes
+    of its own."""
+    m = 48
+    c = _affine_lanes(random.Random(20240229 + 5), m)
+    flag = lambda v: torch.tensor([v], dtype=torch.int32)
+    d, num, case = tga._prepare_plain(_t(c["x1"]), _t(c["y1"]), flag(c["inf1"]), _t(c["x2"]),
+                                      _t(c["y2"]), flag(c["inf2"]), flag(c["sign"]),
+                                      flag(c["valid"]))
+    c.update(num=_ints(num), inv=_ints(tga._fermat_plain(d)), case=case[0].tolist())
+    assert sorted(set(c["case"])) == [0, 1, 2, 3], "every case code is planted"
+    if request.param == "lazy":
+        for i, k in enumerate(("x1", "y1", "x2", "y2", "num", "inv")):
+            c[k] = [v + Q if v < Q and (j + i) % 2 else v for j, v in enumerate(c[k])]
+        assert all(any(v >= Q for v in c[k]) for k in ("x1", "num", "inv"))
+    plain = tga._apply_plain(_t(c["x1"]), _t(c["y1"]), flag(c["inf1"]), _t(c["x2"]),
+                             _t(c["y2"]), flag(c["sign"]), flag(c["case"]), _t(c["num"]),
+                             _t(c["inv"]))
+    rows = {k: jnp.asarray(v[:, None]) for k, v in jga._fq().rows.items()}
+    jflag = lambda v: jnp.asarray(np.array([v], dtype=np.uint32))
+    jraw = lambda v: jnp.asarray(limbs.ints_to_limbs(v, L).T.astype(np.uint32))
+    ref = jga._apply_body(rows, jraw(c["x1"]), jraw(c["y1"]), jflag(c["inf1"]), jraw(c["x2"]),
+                          jraw(c["y2"]), jflag(c["sign"]), jflag(c["case"]), jraw(c["num"]),
+                          jraw(c["inv"]))
+    return c, plain, ref
+
+
+def test_apply_sequence_matches_plain_and_jax(apply_lanes):
+    """fq_apply_kernel's statements against the plain version and the JAX
+    package's body: stored limbs and flags bit for bit, all four case codes,
+    on canonical inputs and with lazy representatives on half the lanes."""
+    c, plain, ref = apply_lanes
+    got = []
+    for k in range(len(c["x1"])):
+        lane = {p + "p": c[p][k] for p in ("x1", "y1", "x2", "y2", "num", "inv")}
+        lane.update(casep=c["case"][k], signp=c["sign"][k], inf1p=c["inf1"][k])
+        out, products = _apply_host(lane)
+        assert set(out) == {"oxp", "oyp", "oinfp"} and products == 3
+        got.append(out)
+    for i, key in enumerate(("oxp", "oyp")):
+        mine = [g[key] for g in got]
+        assert mine == _ints(plain[i])                      # stored limbs, bit for bit
+        assert mine == _ints(np.asarray(ref[i]))
+    mine = [g["oinfp"] for g in got]
+    assert mine == plain[2][0].tolist() == np.asarray(ref[2])[0].tolist()
+
+
+def test_apply_multiplies_on_ptx():
+    """fq_apply's three products are fq_mul_ptx (the square too), one
+    thread a lane in blocks of FQA_LANES."""
+    assert sum(st.startswith("fq_mul_ptx(") for st in APPLY_STATEMENTS) == 3
+    assert not any(st.startswith(("fq_mul(", "fq_sq(")) for st in APPLY_STATEMENTS)
+    assert "__launch_bounds__(FQA_LANES)\nfq_apply_kernel(" in APPLY_SRC
+    launch = re.search(r"fq_apply_kernel<<<(.*?)>>>", APPLY_SRC, re.S).group(1)
+    assert " ".join(launch.split()) == (
+        "(unsigned)((M + FQA_LANES - 1) / FQA_LANES), FQA_LANES, 0, (cudaStream_t)stream")
