@@ -22,7 +22,7 @@
 // returns cudaGetLastError().
 //
 // Registers per thread (nvcc 12.8, -O3, sm_90a, -Xptxas -v; no kernel spills):
-// fq_prepare 96, fq_apply 80, fq_mul 54, fq_fermat 76, fq_inv_up 80 and
+// fq_prepare 96, fq_apply 80, fq_mul 64, fq_fermat 76, fq_inv_up 80 and
 // fq_inv_down 168 (both with 24 KB of shared memory).
 
 #include <cuda_runtime.h>
@@ -47,19 +47,40 @@
 // Bound: a lane moves 3 x 24 int32 words (288 B) and does 2 x 144 = 288
 // 32x32->64 multiply-adds plus carries. At the card's rates the bytes take
 // about 2.5 times as long as the multiply-adds, so the kernel is bound by
-// the memory traffic of the one-16-bit-limb-per-word layout; the design keeps every
-// access coalesced (limbs first) and everything else in registers.
+// the memory traffic of the one-16-bit-limb-per-word layout; every access
+// is coalesced (limbs first) and everything else stays in registers. In
+// one wave the time is still that of the loads plus that of the products:
+// every warp loads, multiplies and stores at the same time (PERF.md, K5).
+//
+// The product is fq_mul_ptx (fq_mul_ptx.cuh), one lane a thread, one warp a
+// block. A thread takes FQM_LANES lanes, m, m + G, ... (G the grid's thread
+// count, so that every row a warp reads stays coalesced); the grid is
+// ceil(M / (FQM_THREADS * FQM_LANES)) blocks. One lane a thread is the
+// fastest form on an H100: a thread that takes two or four lanes, with or
+// without the next lane's loads issued before the current product (a
+// register double buffer), runs its products one after another on fewer
+// warps, and a product alone on a warp takes ~1.4 us. At 50688 lanes that
+// lost more than the overlap of loads and products gained (PERF.md, K3;
+// scripts/torch_g1_variants.py sweeps FQM_LANES).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
+#ifndef FQM_LANES
+#define FQM_LANES 1
+#endif
+#define FQM_THREADS 32
+
+__global__ void __launch_bounds__(FQM_THREADS)
 fq_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
               int M) {
-    long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (m >= M) return;
-    uint32_t x[FQ_WORDS], y[FQ_WORDS];
-    fq_load(x, a, M, m);
-    fq_load(y, b, M, m);
-    fq_mul(x, x, y);
-    fq_store(out, M, m, x);
+    const long G = (long)gridDim.x * FQM_THREADS;
+    long m = (long)blockIdx.x * FQM_THREADS + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < FQM_LANES && m < M; i++, m += G) {
+        uint32_t x[FQ_WORDS], y[FQ_WORDS];
+        fq_load(x, a, M, m);
+        fq_load(y, b, M, m);
+        fq_mul_ptx(x, x, y);
+        fq_store(out, M, m, x);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -374,10 +395,13 @@ fq_fermat_kernel(const int* __restrict__ xp, int* __restrict__ outp, int M) {
 // ---------------------------------------------------------------------------
 
 static inline unsigned blocks_for(int M) { return (unsigned)((M + THREADS - 1) / THREADS); }
+static inline unsigned fqm_blocks(int M) {
+    return (unsigned)((M + FQM_THREADS * FQM_LANES - 1) / (FQM_THREADS * FQM_LANES));
+}
 
 extern "C" int fq_mul_launch(const int* a, const int* b, int* out, int M, void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    fq_mul_kernel<<<blocks_for(M), THREADS, 0, (cudaStream_t)stream>>>(a, b, out, M);
+    fq_mul_kernel<<<fqm_blocks(M), FQM_THREADS, 0, (cudaStream_t)stream>>>(a, b, out, M);
     return (int)cudaGetLastError();
 }
 

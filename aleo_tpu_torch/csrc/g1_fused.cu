@@ -11,10 +11,10 @@
 //   g1_add_sel_proj  <- _build_add_sel_proj  (masked, signed Alg. 7)
 //   g1_normalize     <- _build_normalize     (lk.normalize on x, y, z)
 //
-// g1_double and g1_normalize run one thread per lane, g1_double on fq_mul
-// (mont.cuh). The three adders (g1_add, g1_add_sel, g1_add_sel_proj) spread
-// a lane over G1S_ROLES threads and use fq_mul_ptx (fq_mul_ptx.cuh); their
-// section below says why.
+// g1_normalize runs one thread per lane. The doubling and the three adders
+// (g1_double, g1_add, g1_add_sel, g1_add_sel_proj) spread a lane over
+// several threads and use fq_mul_ptx (fq_mul_ptx.cuh); their section below
+// says why.
 //
 // The curve is y^2 = x^3 + 1 (a = 0, b3 = 3). The formulas are complete:
 // doubling, inverse pairs and the identity (z = 0, as the limbs of 0 or of p)
@@ -37,14 +37,8 @@
 // Bounds. A lane of g1_add moves 9 x 24 words (864 B) and does 12 products
 // of 2 x 144 32x32->64 multiply-adds: at the card's rates the multiply-adds
 // take about 1.6 times as long as the bytes, so the three adders and the
-// doubling are bound by operations; g1_normalize does no product and is
-// bound by bytes. g1_double writes nothing to memory between its
-// products, reads the inputs once, coalesced (limbs first), and orders the
-// products so that the input coordinates die as early as the formula
-// allows. Measured on an H100 it takes 3 times that bound: the carries of
-// fq_mul form one dependent chain of 288 multiply-add steps, and the 12
-// warps an SM holds at this register count do not hide its latency (one
-// warp alone needs 3.5 us for one product).
+// doubling (576 B against 8 products) are bound by operations;
+// g1_normalize does no product and is bound by bytes.
 //
 // Out of place only: an output must not alias an input (the pointers are
 // __restrict__).
@@ -54,10 +48,9 @@
 // lane count and the CUDA stream; it launches on that stream, does not
 // synchronise, and returns cudaGetLastError().
 //
-// Registers per thread (nvcc 12.8, -O3, sm_90a, -Xptxas -v): 168 for
-// g1_double (the cap below; spill stores of 20 bytes), 88 for g1_normalize,
-// 80 for the three adders (no spill). The build log of every run is
-// printed by chip_smoke.py's device phase.
+// Registers per thread (nvcc 12.8, -O3, sm_90a, -Xptxas -v): 88 for
+// g1_normalize, 80 for the doubling and the three adders (no spill). The
+// build log of every run is printed by chip_smoke.py's device phase.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,105 +58,50 @@
 #include "fq.cuh"
 #include "fq_mul_ptx.cuh"
 
-// Threads a block, and the blocks an SM must be able to hold (which caps the
-// registers a thread may use: 65536 / (G1_THREADS * G1_MIN_BLOCKS)).
-// Left alone the compiler takes 188 registers for g1_double and spills
-// nothing, but then an SM holds 8 warps and the 1408 warps of a 45056-lane
-// launch need two waves. Three blocks an SM cap a thread at 168 registers:
-// 20 bytes of spills, 12 warps an SM, one wave, and 1.8x faster (four
-// blocks, 128 registers, spill 200 bytes and more and are slower again).
-#ifndef G1_THREADS
+// Threads a block of g1_normalize, one lane a thread.
 #define G1_THREADS 128
-#endif
-#ifndef G1_MIN_BLOCKS
-#define G1_MIN_BLOCKS 3
-#endif
 
 // ---------------------------------------------------------------------------
-// the doubling, on registers
-// ---------------------------------------------------------------------------
-
-// RCB16 Algorithm 9 (a = 0, b3 = 3): 2 (x, y, z). 8 products, 2 mul3.
-// Outputs must not alias inputs.
-__device__ __forceinline__ void g1_double_core(
-    uint32_t x3[FQ_WORDS], uint32_t y3[FQ_WORDS], uint32_t z3[FQ_WORDS],
-    const uint32_t x[FQ_WORDS], const uint32_t y[FQ_WORDS], const uint32_t z[FQ_WORDS]) {
-    uint32_t t0[FQ_WORDS], t1[FQ_WORDS], t2[FQ_WORDS], txy[FQ_WORDS];
-    uint32_t a[FQ_WORDS], e[FQ_WORDS];
-    fq_mul(t0, y, y);
-    fq_mul(t1, y, z);
-    fq_mul(t2, z, z);
-    fq_mul(txy, x, y);
-    fq_add(e, t0, t0);
-    fq_add(e, e, e);
-    fq_add(e, e, e);                            // e = 8 t0
-    fq_mul3(t2, t2);                            // b3 z^2
-    fq_add(y3, t0, t2);
-    fq_mul3(a, t2);
-    fq_sub(t0, t0, a);                          // t0 = y^2 - 3 b3 z^2
-    fq_mul(a, t2, e);
-    fq_mul(z3, t1, e);                          // z3 = 8 y^3 z
-    fq_mul(y3, t0, y3);
-    fq_add(y3, a, y3);                          // y3 = t2 e + t0 (y^2 + b3 z^2)
-    fq_mul(a, t0, txy);
-    fq_add(x3, a, a);                           // x3 = 2 t0 x y
-}
-
-// ---------------------------------------------------------------------------
-// g1_double: (x, y, z) -> 2 (x, y, z).
-// Bound: 6 x 24 words a lane (576 B) against 8 products: operations.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(G1_THREADS, G1_MIN_BLOCKS)
-g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
-                 const int* __restrict__ zp, int* __restrict__ oxp, int* __restrict__ oyp,
-                 int* __restrict__ ozp, int M) {
-    long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (m >= M) return;
-    long ld = M;
-    uint32_t x[FQ_WORDS], y[FQ_WORDS], z[FQ_WORDS];
-    uint32_t x3[FQ_WORDS], y3[FQ_WORDS], z3[FQ_WORDS];
-    fq_load(x, xp, ld, m);
-    fq_load(y, yp, ld, m);
-    fq_load(z, zp, ld, m);
-    g1_double_core(x3, y3, z3, x, y, z);
-    fq_store(oxp, ld, m, x3);
-    fq_store(oyp, ld, m, y3);
-    fq_store(ozp, ld, m, z3);
-}
-
-// ---------------------------------------------------------------------------
-// The three adders (g1_add, g1_add_sel, g1_add_sel_proj): one lane spread
-// over G1S_ROLES threads.
+// The doubling and the three adders (g1_double, g1_add, g1_add_sel,
+// g1_add_sel_proj): one lane spread over several threads, the roles.
 //
-// Alg. 7 and Alg. 8 are two levels of independent products with cheap sums
+// Alg. 7, 8 and 9 are two levels of independent products with cheap sums
 // between them:
 //
 //   level 1   Alg. 7: t0 = x1 x2, t1 = y1 y2, t2 = z1 z2, (x1 + y1)(x2 + y2),
 //                     (y1 + z1)(y2 + z2), (x1 + z1)(x2 + z2)
 //             Alg. 8: t0 = x1 x2, t1 = y1 y2, (x1 + y1)(x2 + y2), z1 y2, z1 x2
-//   derive    the six factors of level 2 (t3, t4, b3 y3, 3 t0, z3, t1 - b3 z1
-//             or t1 - b3 t2), each as its formula has it, in five jobs (z3
-//             and t1 share b3 t2 or b3 z1)
-//   level 2   t3 t1, t4 y3, t1 z3, y3 t0, z3 t4, t0 t3 (both algorithms)
-//   final     x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3
+//             Alg. 9: t0 = y y, t1 = y z, t2 = z z, txy = x y
+//   derive    Alg. 7, 8: the six factors of level 2 (t3, t4, b3 y3, 3 t0, z3,
+//             t1 - b3 z1 or t1 - b3 t2), each as its formula has it, in five
+//             jobs (z3 and t1 share b3 t2 or b3 z1)
+//             Alg. 9: e = 8 t0 (three additions); b3 t2, y3 = t0 + b3 t2 and
+//             t0 = t0 - 3 (b3 t2); t1 and txy passed on: three jobs
+//   level 2   Alg. 7, 8: t3 t1, t4 y3, t1 z3, y3 t0, z3 t4, t0 t3
+//             Alg. 9: (b3 t2) e, t1 e, t0 y3, t0 txy
+//   final     Alg. 7, 8: x3 = t3 t1 - t4 y3, y3 = t1 z3 + y3 t0,
+//             z3 = z3 t4 + t0 t3
+//             Alg. 9: x3 = 2 (t0 txy), y3 = (b3 t2) e + t0 y3, z3 = t1 e
 //
-// A block holds G1S_LANES lanes (a multiple of 32) and G1S_ROLES roles; the
-// role is the slow index of threadIdx.x, so a warp is 32 lanes of one role:
-// its loads are coalesced in the limbs-first layout, and it never diverges
-// on which product it computes. Role r takes products and jobs r, r + R,
-// r + 2R, ... of each step (R = G1S_ROLES); the steps exchange their
-// values through shared memory (12 words a value, lane fastest: no bank
-// conflicts) with one barrier between steps. A lane's critical path is two
-// products (fq_mul_ptx, fq_mul_ptx.cuh) where one thread did 12 (11), and a
-// launch of L lanes has L / G1S_LANES blocks: 44 for the 1408-lane steps of
-// the bucket reduction, which ran on 11 blocks of 128 threads before.
+// A block holds G1S_LANES lanes (a multiple of 32) and R roles (G1S_ROLES
+// for the adders, G1S_DBL_ROLES for the doubling); the role is the slow
+// index of threadIdx.x, so a warp is 32 lanes of one role: its loads are
+// coalesced in the limbs-first layout, and it never diverges on which
+// product it computes. Role r takes products and jobs r, r + R, r + 2R, ...
+// of each step; the steps exchange their values through shared memory (12
+// words a value, lane fastest: no bank conflicts) with one barrier between
+// steps. A lane's critical path is two products (fq_mul_ptx,
+// fq_mul_ptx.cuh) where one thread did 12 (11, 8), and a launch of L lanes
+// has L / G1S_LANES blocks: 44 for the 1408-lane steps of the bucket
+// reduction, which ran on 11 blocks of 128 threads before, and one for the
+// 22 window totals that the doubling takes.
 //
 // Every step computes what the plain versions compute (`_add_plain`,
-// `_madd_plain` of curves/g1_fused.py: the same sums in the same order, the
-// same products), so the result equals theirs limb for limb after
-// normalize. The operand tables below are read by
+// `_madd_plain`, `_double_plain` of curves/g1_fused.py: the same sums in the
+// same order, the same products), so the result equals theirs limb for limb
+// after normalize. The operand tables below are read by
 // tests/test_torch_g1_hopper.py, whose host model runs the same schedule
-// in all three modes.
+// in all four modes.
 //
 // Masks. In g1_add_sel a lane that is not valid, or whose addend is the
 // (0, 0) sentinel (y2's stored limbs all zero, before the negation), and
@@ -174,8 +112,9 @@ g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
 //
 // Bound: g1_add 9 x 24 words a lane (864 B) against 12 products,
 // g1_add_sel 8 x 24 + 2 words (776 B) against 11 on the kept lanes,
-// g1_add_sel_proj 9 x 24 + 2 words (872 B) against 12 on the valid lanes:
-// operations, as for g1_double above, where most lanes are kept.
+// g1_add_sel_proj 9 x 24 + 2 words (872 B) against 12 on the valid lanes,
+// g1_double 6 x 24 words (576 B) against 8: operations, where most lanes
+// are kept.
 // ---------------------------------------------------------------------------
 
 // Roles, lanes a block, and the blocks an SM must hold (a cap of 85
@@ -195,20 +134,39 @@ g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
 #define G1S_MIN_BLOCKS 4
 #endif
 #define G1S_THREADS (G1S_ROLES * G1S_LANES)
+// The doubling's roles: four products a level, so four roles leave none
+// idle in a product step. Its blocks an SM keep the adders' cap of 85
+// registers (768 threads an SM; 80 are used, no spill). On an H100 four
+// and six roles are within 2 % at 22 and 1408 lanes and four are 6 %
+// faster at 45056 (more lanes an SM in flight); 64 lanes a block are 9-21 %
+// slower at every width (scripts/torch_g1_variants.py).
+#ifndef G1S_DBL_ROLES
+#define G1S_DBL_ROLES 4
+#endif
+#define G1S_DBL_THREADS (G1S_DBL_ROLES * G1S_LANES)
+#define G1S_DBL_MIN_BLOCKS (768 / G1S_DBL_THREADS)
 // what g1s_body computes: Alg. 7 on every lane (g1_add), Alg. 8 with an
 // affine addend, the sign and the masks (g1_add_sel), Alg. 7 with the sign
-// and the valid mask (g1_add_sel_proj)
-enum G1sMode { G1S_ADD, G1S_MADD_SEL, G1S_ADD_SEL_PROJ };
+// and the valid mask (g1_add_sel_proj), Alg. 9 on every lane (g1_double)
+enum G1sMode { G1S_ADD, G1S_MADD_SEL, G1S_ADD_SEL_PROJ, G1S_DOUBLE };
 
 // level 1, product j = (acc[u1] (+ acc[v1])) x (addend[u2] (+ addend[v2])),
-// coordinates 0, 1, 2 = x, y, z; -1 = no second term. {u1, v1, u2, v2}
+// coordinates 0, 1, 2 = x, y, z; -1 = no second term. {u1, v1, u2, v2}.
+// The doubling's addend is its own point.
 static __constant__ int8_t G1S_ADD_L1[6][4] = {
     {0, -1, 0, -1}, {1, -1, 1, -1}, {2, -1, 2, -1}, {0, 1, 0, 1}, {1, 2, 1, 2}, {0, 2, 0, 2}};
 static __constant__ int8_t G1S_MADD_L1[5][4] = {
     {0, -1, 0, -1}, {1, -1, 1, -1}, {0, 1, 0, 1}, {2, -1, 1, -1}, {2, -1, 0, -1}};
+static __constant__ int8_t G1S_DBL_L1[4][4] = {
+    {1, -1, 1, -1}, {1, -1, 2, -1}, {2, -1, 2, -1}, {0, -1, 1, -1}};
 // level 2, product j = d[a] d[b] over the derived values
-// d = (t3, t4, b3 y3, 3 t0, z3, t1 - b3 t2)
+// d = (t3, t4, b3 y3, 3 t0, z3, t1 - b3 t2) of the adders and
+// d = (b3 t2, e, t1, t0 - 3 b3 t2, t0 + b3 t2, txy) of the doubling
 static __constant__ int8_t G1S_L2[6][2] = {{0, 5}, {1, 2}, {5, 4}, {2, 3}, {4, 1}, {3, 0}};
+static __constant__ int8_t G1S_DBL_L2[4][2] = {{0, 1}, {2, 1}, {3, 4}, {3, 5}};
+// the doubling's final sums: coordinate c = P[u] + P[v] over the level-2
+// products P, or P[u] alone where v < 0. {u, v}
+static __constant__ int8_t G1S_DBL_OUT[3][2] = {{3, 3}, {0, 2}, {1, -1}};
 
 __device__ __forceinline__ void g1s_put(uint32_t* s, int lane, const uint32_t v[FQ_WORDS]) {
 #pragma unroll
@@ -316,14 +274,47 @@ __device__ __forceinline__ void g1s_madd_derive(int j, const uint32_t* s1, uint3
     }
 }
 
-template <G1sMode MODE>
+// Alg. 9's derive job j (0..2): t0, t1, t2, txy in s1, the level-2 factors
+// d = (b3 t2, e, t1, t0 - 3 b3 t2, t0 + b3 t2, txy) to s2
+__device__ __forceinline__ void g1s_dbl_derive(int j, const uint32_t* s1, uint32_t* s2,
+                                               int lane) {
+    constexpr int V = FQ_WORDS * G1S_LANES;
+    uint32_t a[FQ_WORDS], b[FQ_WORDS], c[FQ_WORDS];
+    if (j == 0) {
+        g1s_get(a, s1, lane);
+        fq_add(b, a, a);
+        fq_add(b, b, b);
+        fq_add(b, b, b);                        // e = 8 t0
+        g1s_put(s2 + 1 * V, lane, b);
+    } else if (j == 1) {
+        g1s_get(a, s1 + 2 * V, lane);
+        fq_mul3(b, a);                          // b3 t2
+        g1s_put(s2, lane, b);
+        g1s_get(a, s1, lane);                   // t0
+        fq_add(c, a, b);
+        g1s_put(s2 + 4 * V, lane, c);           // y3 = t0 + b3 t2
+        fq_mul3(c, b);
+        fq_sub(b, a, c);
+        g1s_put(s2 + 3 * V, lane, b);           // t0 = t0 - 3 b3 t2
+    } else {
+        g1s_get(a, s1 + 1 * V, lane);
+        g1s_put(s2 + 2 * V, lane, a);           // t1
+        g1s_get(a, s1 + 3 * V, lane);
+        g1s_put(s2 + 5 * V, lane, a);           // txy
+    }
+}
+
+template <G1sMode MODE, int ROLES = G1S_ROLES>
 __device__ __forceinline__ void g1s_body(
     const int* __restrict__ x1p, const int* __restrict__ y1p, const int* __restrict__ z1p,
     const int* __restrict__ x2p, const int* __restrict__ y2p, const int* __restrict__ z2p,
     const int* __restrict__ signp, const int* __restrict__ validp, int* __restrict__ oxp,
     int* __restrict__ oyp, int* __restrict__ ozp, int M) {
     constexpr int V = FQ_WORDS * G1S_LANES;
-    constexpr bool MIXED = MODE == G1S_MADD_SEL;
+    constexpr bool MIXED = MODE == G1S_MADD_SEL, DOUBLE = MODE == G1S_DOUBLE;
+    constexpr bool MASKED = MODE == G1S_MADD_SEL || MODE == G1S_ADD_SEL_PROJ;
+    // products of level 1, derive jobs, products of level 2
+    constexpr int N1 = DOUBLE ? 4 : (MIXED ? 5 : 6), ND = DOUBLE ? 3 : 5, N2 = DOUBLE ? 4 : 6;
     __shared__ uint32_t s1[6 * V], s2[6 * V];
     const int role = threadIdx.x / G1S_LANES, lane = threadIdx.x % G1S_LANES;
     const long m = (long)blockIdx.x * G1S_LANES + lane;
@@ -350,14 +341,15 @@ __device__ __forceinline__ void g1s_body(
     // loading the kept lanes alone, and within 1 % where all or half are: a
     // warp whose lanes are mixed runs the products anyway.
     uint32_t a[FQ_WORDS], b[FQ_WORDS];
-    constexpr int N1 = MIXED ? 5 : 6;
-    for (int j = role; j < N1; j += G1S_ROLES) {
+    for (int j = role; j < N1; j += ROLES) {
         if (live) {
             int t[4];
 #pragma unroll
             for (int i = 0; i < 4; i++) {
                 if constexpr (MIXED)
                     t[i] = G1S_MADD_L1[j][i];
+                else if constexpr (DOUBLE)
+                    t[i] = G1S_DBL_L1[j][i];
                 else
                     t[i] = G1S_ADD_L1[j][i];
             }
@@ -371,38 +363,50 @@ __device__ __forceinline__ void g1s_body(
     }
     __syncthreads();
     if (keep) {
-        for (int j = role; j < 5; j += G1S_ROLES) {
+        for (int j = role; j < ND; j += ROLES) {
             if constexpr (MIXED)
                 g1s_madd_derive(j, s1, s2, lane, x1p, y1p, z1p, ld, m);
+            else if constexpr (DOUBLE)
+                g1s_dbl_derive(j, s1, s2, lane);
             else
                 g1s_add_derive(j, s1, s2, lane);
         }
     }
     __syncthreads();
     if (keep) {
-        for (int j = role; j < 6; j += G1S_ROLES) {
-            g1s_get(a, s2 + G1S_L2[j][0] * V, lane);
-            g1s_get(b, s2 + G1S_L2[j][1] * V, lane);
+        for (int j = role; j < N2; j += ROLES) {
+            const int u = DOUBLE ? G1S_DBL_L2[j][0] : G1S_L2[j][0];
+            const int w = DOUBLE ? G1S_DBL_L2[j][1] : G1S_L2[j][1];
+            g1s_get(a, s2 + u * V, lane);
+            g1s_get(b, s2 + w * V, lane);
             fq_mul_ptx(a, a, b);
             g1s_put(s1 + j * V, lane, a);
         }
     }
     __syncthreads();
     if (keep) {
-        for (int c = role; c < 3; c += G1S_ROLES) {
-            g1s_get(a, s1 + 2 * c * V, lane);
-            g1s_get(b, s1 + (2 * c + 1) * V, lane);
-            if (c == 0)
-                fq_sub(a, a, b);                // x3 = t3 t1 - t4 y3
-            else
-                fq_add(a, a, b);                // y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3
+        for (int c = role; c < 3; c += ROLES) {
+            if constexpr (DOUBLE) {
+                g1s_get(a, s1 + G1S_DBL_OUT[c][0] * V, lane);
+                if (G1S_DBL_OUT[c][1] >= 0) {
+                    g1s_get(b, s1 + G1S_DBL_OUT[c][1] * V, lane);
+                    fq_add(a, a, b);            // x3 = 2 t0 txy, y3 = (b3 t2) e + t0 y3
+                }
+            } else {
+                g1s_get(a, s1 + 2 * c * V, lane);
+                g1s_get(b, s1 + (2 * c + 1) * V, lane);
+                if (c == 0)
+                    fq_sub(a, a, b);            // x3 = t3 t1 - t4 y3
+                else
+                    fq_add(a, a, b);            // y3 = t1 z3 + y3 t0, z3 = z3 t4 + t0 t3
+            }
             fq_store(c == 0 ? oxp : (c == 1 ? oyp : ozp), ld, m, a);
         }
     }
     // a masked lane: the accumulator's stored words, split over the roles
-    if constexpr (MODE != G1S_ADD) {
+    if constexpr (MASKED) {
         if (live && !keep) {
-            for (int k = role; k < 3 * FQ_LIMBS; k += G1S_ROLES) {
+            for (int k = role; k < 3 * FQ_LIMBS; k += ROLES) {
                 const int c = k / FQ_LIMBS, l = k % FQ_LIMBS;
                 const int* src = c == 0 ? x1p : (c == 1 ? y1p : z1p);
                 int* dst = c == 0 ? oxp : (c == 1 ? oyp : ozp);
@@ -410,6 +414,17 @@ __device__ __forceinline__ void g1s_body(
             }
         }
     }
+}
+
+// ---------------------------------------------------------------------------
+// g1_double: (x, y, z) -> 2 (x, y, z), complete (RCB16 Alg. 9, a = 0).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(G1S_DBL_THREADS, G1S_DBL_MIN_BLOCKS)
+g1_double_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
+                 const int* __restrict__ zp, int* __restrict__ oxp, int* __restrict__ oyp,
+                 int* __restrict__ ozp, int M) {
+    g1s_body<G1S_DOUBLE, G1S_DBL_ROLES>(xp, yp, zp, xp, yp, zp, nullptr, nullptr, oxp, oyp, ozp,
+                                        M);
 }
 
 // ---------------------------------------------------------------------------
@@ -460,7 +475,7 @@ g1_add_sel_proj_kernel(const int* __restrict__ x1p, const int* __restrict__ y1p,
 // Bound: 6 x 24 words a lane (576 B), no product: bytes. One launch for the
 // three coordinates, two conditional subtractions each.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(G1_THREADS, G1_MIN_BLOCKS)
+__global__ void __launch_bounds__(G1_THREADS)
 g1_normalize_kernel(const int* __restrict__ xp, const int* __restrict__ yp,
                     const int* __restrict__ zp, int* __restrict__ oxp, int* __restrict__ oyp,
                     int* __restrict__ ozp, int M) {
@@ -489,7 +504,8 @@ static inline unsigned g1s_blocks(int M) { return (unsigned)((M + G1S_LANES - 1)
 extern "C" int g1_double_launch(const int* x, const int* y, const int* z, int* ox, int* oy,
                                 int* oz, int M, void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    g1_double_kernel<<<g1_blocks(M), G1_THREADS, 0, (cudaStream_t)stream>>>(x, y, z, ox, oy, oz, M);
+    g1_double_kernel<<<g1s_blocks(M), G1S_DBL_THREADS, 0, (cudaStream_t)stream>>>(
+        x, y, z, ox, oy, oz, M);
     return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,10 @@ Phases, each printing one JSON line with its seconds:
   kernels   fq_prepare, fq_mul, fq_apply each against its plain PyTorch
             version on the card (exact equality after normalize) at the lane
             grid of a 32768-point MSM, edge-case lanes planted among random
-            ones; fq_apply also at 1, 127, 129, 1001 and 180224 lanes with
+            ones; fq_mul also at 1, 2, 31, 33, 127, 129, 1001 and 180224
+            lanes, operands at 2p and 2p - 1 planted at both ends, its
+            stored limbs equal to the plain version's, timed at 2, 128 and
+            180224 lanes too; fq_apply also at 1, 127, 129, 1001 and 180224 lanes with
             every case code planted (from 8 lanes on), its stored limbs
             equal to the plain version's and kept lanes bit for bit, timed
             at 128 lanes too; fq_inv_up, fq_fermat (safegcd) and fq_inv_down, the batch
@@ -36,14 +39,16 @@ Phases, each printing one JSON line with its seconds:
             at the ragged widths 1, 22, 129 and 1001, with P + P, P + (-P),
             identities (z as 0 and as p), the (0, 0) sentinel, invalid lanes
             and lazy representatives planted among random lanes; at 22 lanes
-            also real curve points against the host group law. The three
-            adders g1_add, g1_add_sel and g1_add_sel_proj (a lane over six
-            threads) also at 704, 1408 and 22528 lanes, and timed at 22, 704
-            and 1408 lanes too; g1_add_sel_proj at every width with all
-            lanes valid, half, one in 16 and none besides the planted
-            invalid lanes, and timed at half and one in 16 valid. Registers,
-            spills and shared memory of fq_apply and the adders from the
-            build log. fq_mul_canon,
+            also real curve points against the host group law. g1_double
+            (a lane over four threads) also at 31, 33, 704 and 1408 lanes,
+            timed at 22, 704 and 1408 lanes too. The three adders g1_add,
+            g1_add_sel and g1_add_sel_proj (a lane over six threads) also at
+            704, 1408 and 22528 lanes, and timed at 22, 704 and 1408 lanes
+            too; g1_add_sel_proj at every width with all lanes valid, half,
+            one in 16 and none besides the planted invalid lanes, and timed
+            at half and one in 16 valid. Registers, spills and shared memory
+            of fq_mul, fq_apply, g1_double and the adders from the build
+            log. fq_mul_canon,
             fq_mul_chain12 and fr_mul each against its plain version, equal
             bit for bit (raw limbs, no normalize), at 2^16 elements and at
             1, 129 and 1001, with 0, 1, p - 1, p, 2p - 1 and the largest
@@ -162,6 +167,16 @@ M_ROOTS = -(-M_GRID // ga.INV_TILE)     # 50 tile products at the grid's root
 M_TWO_LEVELS = 4 * 22 * 2048            # 180224: msm_batch_host's grid at k = 4
 # fq_apply's other widths: ragged tiles, and msm_batch_host's grid
 M_APPLY_WIDTHS = (1, 127, 129, 1001, M_TWO_LEVELS)
+# fq_mul's widths: to_affine's 2 points, ragged warps and blocks, the grid,
+# msm_batch_host's grid; the timed ones; operand pairs at 2p and 2p - 1
+M_MUL_WIDTHS = (1, 2, 31, 33, 127, 129, 1001, M_GRID, M_TWO_LEVELS)
+M_MUL_TIMED = (2, 128, M_GRID, M_TWO_LEVELS)
+MUL_EDGE = [(2 * Q, 2 * Q), (2 * Q, 2 * Q - 1), (2 * Q - 1, 2 * Q), (2 * Q - 1, 2 * Q - 1),
+            (0, 2 * Q), (2 * Q, 1), (Q, 2 * Q)]
+# g1_double's widths beyond those of every g1 kernel: ragged warps, the
+# scan steps of the bucket reduction; and where it is timed
+M_DOUBLE_WIDTHS = (31, 33, 704, 1408)
+M_DOUBLE_TIMED = (M_WINDOWS, 704, 1408)
 # fq_fermat's multiply-adds a lane (csrc/fq_inv.cuh): a batch's matrix times f, g (4
 # products a limb) and d, e with their multiples of p (6), 32x32->64 each
 SAFEGCD_MADS = ga.SAFEGCD_BATCHES * 2 * (4 + 6) * ga.S30_LIMBS
@@ -366,6 +381,41 @@ def _apply_check(rng, m):
     return err, all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _mul_operands(rng, w):
+    """Two (L, w) operands <= 2p: random, with MUL_EDGE planted at both ends
+    (the first lanes a thread takes and the last)."""
+    a = [rng.randrange(2 * Q + 1) for _ in range(w)]
+    b = [rng.randrange(2 * Q + 1) for _ in range(w)]
+    for k, (u, v) in enumerate(MUL_EDGE[:w]):
+        a[k], b[k] = u, v
+        a[w - 1 - k], b[w - 1 - k] = u, v
+    return fq_tensor(a), fq_tensor(b)
+
+
+def _mul_kernel(res, rng):
+    """fq_mul, the elementwise product of to_affine, against its plain
+    version at M_MUL_WIDTHS (exact after normalize; the stored limbs too),
+    and its times at M_MUL_TIMED; registers from the build log."""
+    err, raw, ops = 0, True, {}
+    for w in M_MUL_WIDTHS:
+        a, b = ops[w] = _mul_operands(rng, w)
+        got, want = ga.fq_mul(a, b), ga._mul_plain(a, b)
+        err, raw = max(err, same(got, want)), raw and torch.equal(got, want)
+    torch.cuda.synchronize()
+    a, b = ops[M_GRID]
+    res["fq_mul"] = {
+        "max_abs_err": err, "lanes": M_GRID, "widths": list(M_MUL_WIDTHS), "raw_limbs_equal": raw,
+        "ms": kernel_ms(lambda t: ga.fq_mul(*t), copies((a, b), 8)),
+        "plain_ms": cuda_ms(lambda: ga._mul_plain(a, b), 5),
+        "bytes": 3 * 4 * L * M_GRID, "mads": MADS_PER_PRODUCT * M_GRID,
+        "ptxas": _build.ptxas_info().get("fq_mul_kernel", "not built in this process"),
+    }
+    for w in M_MUL_TIMED:
+        if w != M_GRID:
+            t = ops[w] if w in ops else _mul_operands(rng, w)
+            res["fq_mul"][f"ms_{w}_lanes"] = kernel_ms(lambda t: ga.fq_mul(*t), copies(t, 4))
+
+
 def _madd_plain(x1, y1, inf1, x2, y2, inf2, sign, valid):
     """madd from the plain versions alone (every lane inverted on its own)."""
     d, num, case = ga._prepare_plain(x1, y1, inf1, x2, y2, inf2, sign, valid)
@@ -479,14 +529,7 @@ def phase_kernels():
         "bytes": (6 * 4 * L + 5 * 4) * m, "mads": MADS_PER_PRODUCT * m,
     }
 
-    # fq_mul, the elementwise product of to_affine
-    err = same(ga.fq_mul(x1, y2), ga._mul_plain(x1, y2))
-    res["fq_mul"] = {
-        "max_abs_err": err, "lanes": m,
-        "ms": kernel_ms(lambda a: ga.fq_mul(*a), copies((x1, y2), 8)),
-        "plain_ms": cuda_ms(lambda: ga._mul_plain(x1, y2), 5),
-        "bytes": 3 * 4 * L * m, "mads": MADS_PER_PRODUCT * m,
-    }
+    _mul_kernel(res, rng)
 
     inv = ga._fermat_plain(dp)
     _inversion_kernels(res, rng, dp, inv)
@@ -672,6 +715,12 @@ def _g1_kernels(res):
         assert w < len(G1_KINDS) or min(small_counts) > 0, (w, small_counts)
         for name, e in _g1_check(small, rng).items():
             err[name] = max(err[name], e)
+    # the doubling at more widths
+    for w in M_DOUBLE_WIDTHS:
+        small, small_counts = _g1_inputs(rng, w)
+        assert min(small_counts) > 0, (w, small_counts)
+        e = same3(gf.double_lf(gf.G1LF(*small[:3])), gf._double_plain(*small[:3]))
+        err["g1_double"] = max(err["g1_double"], e)
     # the three adders (a lane over several threads) also at more widths of
     # the bucket reduction
     for w in M_SPREAD_WIDTHS:
@@ -681,7 +730,6 @@ def _g1_kernels(res):
             err[name] = max(err[name], e)
     _g1_on_the_curve(rng)
     x1, y1, z1, x2, y2, z2, sign, valid = args
-    narrow = tuple(t[:, :M_WINDOWS].contiguous() for t in args)
     kept = int(((valid != 0) & (y2.amax(dim=0, keepdim=True) != 0)).sum().item())
     n_valid = int((valid != 0).sum().item())
     coord = 4 * L * m
@@ -710,11 +758,16 @@ def _g1_kernels(res):
             "ms": kernel_ms(launch, copies(a, sets)),
             "plain_ms": cuda_ms(plain, 3), "bytes": nbytes, "mads": mads,
         }
-    # the narrow end of the bucket reduction: one lane for each window
-    res["g1_double"]["ms_22_lanes"] = kernel_ms(specs["g1_double"][0], copies(narrow[:3], 4))
+    # the doubling at the narrow end of the bucket reduction (one lane for
+    # each window) and at its scan steps; registers, spills and shared
+    # memory from the build log
+    ptxas = _build.ptxas_info()
+    for w in M_DOUBLE_TIMED:
+        part = tuple(t[:, :w].contiguous() for t in args[:3])
+        res["g1_double"][f"ms_{w}_lanes"] = kernel_ms(specs["g1_double"][0], copies(part, 4))
+    res["g1_double"]["ptxas"] = ptxas.get("g1_double_kernel", "not built in this process")
     # the three adders at the reduction's narrow widths; registers, spills
     # and shared memory from the build log
-    ptxas = _build.ptxas_info()
     for name, cols in (("g1_add", range(6)), ("g1_add_sel", (0, 1, 2, 3, 4, 6, 7)),
                        ("g1_add_sel_proj", range(8))):
         for w in (M_WINDOWS, 704, 1408):

@@ -1,35 +1,42 @@
 #!/usr/bin/env python3
-"""Build settings of the spread adders and of fq_apply, tried out.
+"""Build settings of the projective kernels, fq_apply and fq_mul, tried out.
 
-    python3 scripts/torch_g1_variants.py [--baseline DIR ...] [--rounds N] [out.json]
+    python3 scripts/torch_g1_variants.py [--families F,...] [--baseline DIR ...]
+                                         [--rounds N] [out.json]
 
-Two families of kernels, each built from its source once for each variant
+Four families of kernels, each built from its source once for each variant
 below, all builds at once; for each variant the script prints what
 `-Xptxas -v` says of the kernels (registers, spill bytes, shared memory)
 and the device time of one launch at each width (events around replays of
-a CUDA graph whose launches rotate over distinct buffers).
+a CUDA graph whose launches rotate over distinct buffers, more than the
+50 MB L2 cache in all at the main path's width).
 
-- The three adders of `aleo_tpu_torch/csrc/g1_fused.cu` (g1_add, g1_add_sel,
-  g1_add_sel_proj) spread a lane over G1S_ROLES threads, G1S_LANES lanes a
-  block, and ask for G1S_MIN_BLOCKS blocks an SM (the second argument of
-  __launch_bounds__, which caps a thread's registers at 65536 / (roles *
-  lanes * blocks)). Widths 22, 1408 and 45056 lanes (the narrow end of the
-  bucket reduction, its scan steps, a round of a 32768-point MSM);
-  g1_add_sel_proj with all lanes valid, half of them, and one in 16 (the
-  later steps of the top-window merge).
-- fq_apply of `aleo_tpu_torch/csrc/g1_affine.cu`, one thread a lane:
+- g1: the three adders of `aleo_tpu_torch/csrc/g1_fused.cu` (g1_add,
+  g1_add_sel, g1_add_sel_proj) spread a lane over G1S_ROLES threads,
+  G1S_LANES lanes a block, and ask for G1S_MIN_BLOCKS blocks an SM (the
+  second argument of __launch_bounds__, which caps a thread's registers at
+  65536 / (roles * lanes * blocks)). Widths 22, 1408 and 45056 lanes (the
+  narrow end of the bucket reduction, its scan steps, a round of a
+  32768-point MSM); g1_add_sel_proj with all lanes valid, half of them, and
+  one in 16 (the later steps of the top-window merge).
+- double: g1_double of the same file, the doubling's mode of the role
+  split, over G1S_DBL_ROLES roles and G1S_LANES lanes a block (its blocks
+  an SM follow: 768 threads). Widths 22, 1408 and 45056.
+- apply: fq_apply of `aleo_tpu_torch/csrc/g1_affine.cu`, one thread a lane:
   FQA_LANES lanes a block (and so the blocks an SM holds). Widths 128, 50688
   (a round of the batch-affine MSM of a proof) and 180224 (msm_batch_host's,
   k = 4).
+- mul: fq_mul of the same file, FQM_LANES lanes a thread, strided by the
+  grid. Widths 2 (to_affine's), 128, 50688 and 180224.
 
-Each --baseline DIR (another checkout, for example the parent commit
-unpacked with `git archive`; same launcher signatures) has the same kernels
-built from DIR's `aleo_tpu_torch/csrc/` at its own defaults and timed beside
-them, first. The variants of one kernel and width are timed in --rounds
-rounds (default 3), every variant once a round, the order reversed in every
-other round, so that two variants are compared within the same stretch of
-the card's clocks; `ms` is the median of a variant's rounds, `ms_rounds`
-all of them.
+`--families` picks some of them (default: all). Each --baseline DIR (another
+checkout, for example the parent commit unpacked with `git archive`; same
+launcher signatures) has the same kernels built from DIR's
+`aleo_tpu_torch/csrc/` at its own defaults and timed beside them, first.
+The variants of one kernel and width are timed in --rounds rounds (default
+3), every variant once a round, the order reversed in every other round, so
+that two variants are compared within the same stretch of the card's
+clocks; `ms` is the median of a variant's rounds, `ms_rounds` all of them.
 
 Every variant's outputs are held against the first one's of its family
 after normalize (exact), and `raw_equal` says whether the stored limbs
@@ -54,8 +61,9 @@ from aleo_tpu_torch.fields import limb_kernels as lk
 L = params.FQ_LIMBS
 SETS = 3
 # family -> source, kernels {name: (input kinds, output kinds, valid rows)},
-# widths, variants [(name, defines)]. An input kind is "c" for a
-# coordinate or the name of a flag row; an output kind "c" or "f".
+# widths, variants [(name, defines)], and optionally the number of input
+# sets (default SETS). An input kind is "c" for a coordinate or the name of
+# a flag row; an output kind "c" or "f".
 FAMILIES = {
     "g1": {
         "source": "g1_fused.cu",
@@ -74,6 +82,17 @@ FAMILIES = {
             ("r2_l32_b8", ["-DG1S_ROLES=2", "-DG1S_MIN_BLOCKS=8"]),
         ],
     },
+    "double": {
+        "source": "g1_fused.cu",
+        "kernels": {"g1_double": ("ccc", "ccc", ("all",))},
+        "widths": (22, 1408, 22 * 2048),
+        "variants": [
+            ("r4_l32", []),                                 # the default: 128 threads
+            ("r6_l32", ["-DG1S_DBL_ROLES=6"]),
+            ("r4_l64", ["-DG1S_LANES=64", "-DG1S_MIN_BLOCKS=2"]),
+            ("r6_l64", ["-DG1S_DBL_ROLES=6", "-DG1S_LANES=64", "-DG1S_MIN_BLOCKS=2"]),
+        ],
+    },
     "apply": {
         "source": "g1_affine.cu",
         "kernels": {
@@ -86,6 +105,17 @@ FAMILIES = {
             ("t128", ["-DFQA_LANES=128"]),
             ("t256", ["-DFQA_LANES=256"]),
         ],
+    },
+    "mul": {
+        "source": "g1_affine.cu",
+        "kernels": {"fq_mul": ("cc", "c", ("all",))},
+        "widths": (2, 128, 22 * 2048 * 9 // 8, 4 * 22 * 2048),
+        "variants": [
+            ("k1", []),                             # the default: one lane a thread
+            ("k2", ["-DFQM_LANES=2"]),
+            ("k4", ["-DFQM_LANES=4"]),
+        ],
+        "sets": 8,                                  # 117 MB at 50688 lanes
     },
 }
 
@@ -106,14 +136,15 @@ def _load(so, kernels):
     return lib
 
 
-def build_all(baselines):
-    """Every variant of every family (and the baselines) at once ->
+def build_all(baselines, families):
+    """Every variant of every family named (and the baselines) at once ->
     {family: [(name, defines, lib, ptxas)]}; a baseline's name is
     "baseline_" and its directory's name, its defines None."""
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     jobs = []
-    for fam, spec in FAMILIES.items():
+    for fam in families:
+        spec = FAMILIES[fam]
         for base in baselines:
             src = os.path.join(base, "aleo_tpu_torch", "csrc", spec["source"])
             name = "baseline_" + os.path.basename(os.path.normpath(base))
@@ -123,7 +154,7 @@ def build_all(baselines):
                          defines))
     procs = [_compile(src, os.path.join(out_dir, f"{fam}_{name}.so"), d)
              for fam, name, _, src, d in jobs]
-    built = {fam: [] for fam in FAMILIES}
+    built = {fam: [] for fam in families}
     for (fam, name, defines, _, _), proc in zip(jobs, procs):
         log = proc.communicate()[0]
         if proc.returncode:
@@ -138,8 +169,8 @@ def build_all(baselines):
     return built
 
 
-def _inputs(gen, m):
-    """SETS sets of operands: coordinates < 2p, and the flag rows."""
+def _inputs(gen, m, n_sets):
+    """n_sets sets of operands: coordinates < 2p, and the flag rows."""
     def coord():
         x = torch.randint(0, 1 << 16, (L, m), dtype=torch.int32, device="cuda", generator=gen)
         x[L - 1] %= 0x35C          # below 2p
@@ -152,7 +183,7 @@ def _inputs(gen, m):
         return (torch.randint(0, 16, (1, m), device="cuda", generator=gen) == 0).to(torch.int32)
 
     sets = []
-    for _ in range(SETS):
+    for _ in range(n_sets):
         sets.append({"c": [coord() for _ in range(6)], "sign": flag(2), "inf1": flag(2),
                      "case": flag(4), "valid": {"all": torch.ones_like(flag(2)),
                                                 "half": flag(2), "few": few()}})
@@ -173,7 +204,7 @@ def _norm(fq, t):
     return lk.normalize(fq, t) if t.shape[0] == L else t
 
 
-def _time(graph):
+def _time(graph, n_sets):
     graph.replay()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -183,7 +214,7 @@ def _time(graph):
         graph.replay()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / (20 * SETS)
+    return e0.elapsed_time(e1) / (20 * n_sets)
 
 
 def main(argv):
@@ -191,6 +222,8 @@ def main(argv):
     ap.add_argument("--baseline", action="append", default=[],
                     help="another checkout whose kernels are timed first (repeatable)")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--families", default=",".join(FAMILIES),
+                    help="comma-separated families to build and time (default: all)")
     ap.add_argument("out", nargs="?")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -199,14 +232,19 @@ def main(argv):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    built = build_all(args.baseline)
+    families = args.families.split(",")
+    if set(families) - set(FAMILIES):
+        sys.exit(f"torch_g1_variants: unknown family {sorted(set(families) - set(FAMILIES))}")
+    built = build_all(args.baseline, families)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     stream = torch.cuda.Stream()
     fq = lk.get_fq()
     result = {"card": card, "rounds": args.rounds, "families": {}}
-    for fam, spec in FAMILIES.items():
-        sets = _inputs(gen, max(spec["widths"]))
+    for fam in families:
+        spec = FAMILIES[fam]
+        n_sets = spec.get("sets", SETS)
+        sets = _inputs(gen, max(spec["widths"]), n_sets)
         rows = {name: {"defines": defines, "ptxas": ptxas, "ms": {}, "ms_rounds": {},
                        "raw_equal": {}} for name, defines, _, ptxas in built[fam]}
         for kname, (ins, outk, vrows) in spec["kernels"].items():
@@ -240,14 +278,14 @@ def main(argv):
                                     torch.equal(a, b) for a, b in zip(got, first))
                             graph = torch.cuda.CUDAGraph()
                             with torch.cuda.graph(graph, stream=stream):
-                                for i in range(SETS):
+                                for i in range(n_sets):
                                     launch(i)
                         graphs.append((name, graph, outs))
                     times = {name: [] for name, _, _ in graphs}
                     for r in range(args.rounds):
                         for name, graph, _ in (graphs if r % 2 == 0 else graphs[::-1]):
                             with torch.cuda.stream(stream):
-                                times[name].append(_time(graph))
+                                times[name].append(_time(graph, n_sets))
                     for name, t in times.items():
                         rows[name]["ms_rounds"][key] = t
                         rows[name]["ms"][key] = sorted(t)[len(t) // 2]

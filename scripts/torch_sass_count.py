@@ -6,8 +6,8 @@ counted in the SASS.
 
 Builds the kernel library (`aleo_tpu_torch/_build.py`), disassembles it with
 the toolkit's `cuobjdump -sass` and prints one JSON object: for each of
-fq_fermat, fq_inv_up, fq_inv_down, fq_mul, fq_apply and the three adders
-g1_add, g1_add_sel, g1_add_sel_proj, the number of instructions in its SASS
+fq_fermat, fq_inv_up, fq_inv_down, fq_mul, fq_apply, g1_double and the three
+adders g1_add, g1_add_sel, g1_add_sel_proj, the number of instructions in its SASS
 and, for every loop (a branch back to an earlier instruction), the
 instructions of the loop body, with the first branches as the SASS spells
 them. fq_fermat's body is branch-free apart from its one loop
@@ -36,7 +36,8 @@ from aleo_tpu_torch import _build
 from aleo_tpu_torch.curves import g1_affine as ga
 
 KERNELS = ("fq_fermat_kernel", "fq_inv_up_kernel", "fq_inv_down_kernel", "fq_mul_kernel",
-           "fq_apply_kernel", "g1_add_kernel", "g1_add_sel_kernel", "g1_add_sel_proj_kernel")
+           "fq_apply_kernel", "g1_double_kernel", "g1_add_kernel", "g1_add_sel_kernel",
+           "g1_add_sel_proj_kernel")
 PROBE = r"""
 #include "fq.cuh"
 #include "fq_mul_ptx.cuh"

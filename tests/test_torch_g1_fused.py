@@ -297,10 +297,16 @@ def test_cuda_launcher_signature_matches_its_binding(name):
     k = POINTERS[name]
     assert f"lib.{name}_launch.argtypes = [P] * {k} + [I, P]" in build
     assert name in tgf.LAUNCHES
-    # the three adders spread a lane over several threads (G1S_*)
-    bounds = "G1S_THREADS, G1S_MIN_BLOCKS" if name in SPREAD else "G1_THREADS, G1_MIN_BLOCKS"
+    # the doubling and the three adders spread a lane over several threads
+    # (G1S_*, the doubling with roles of its own); g1_normalize runs one
+    # thread a lane
+    if name == "g1_double":
+        bounds, grid = "G1S_DBL_THREADS, G1S_DBL_MIN_BLOCKS", "g1s_blocks(M), G1S_DBL_THREADS"
+    elif name in SPREAD:
+        bounds, grid = "G1S_THREADS, G1S_MIN_BLOCKS", "g1s_blocks(M), G1S_THREADS"
+    else:
+        bounds, grid = "G1_THREADS", "g1_blocks(M), G1_THREADS"
     assert f"__launch_bounds__({bounds})\n{name}_kernel(" in src
-    grid = "g1s_blocks(M), G1S_THREADS" if name in SPREAD else "g1_blocks(M), G1_THREADS"
     assert f"{name}_kernel<<<{grid}, 0, (cudaStream_t)stream>>>(" in src
 
 
@@ -310,18 +316,18 @@ def test_cuda_formulas_have_the_products_of_their_algorithms():
     def body(fn):
         return re.search(r"void " + fn + r"\((?:.*?)\) \{(.*?)\n\}", src, re.S).group(1)
 
-    assert body("g1_double_core").count("fq_mul(") == 8
-    assert body("g1_double_core").count("fq_mul3(") == 2
-    # the adders, Alg. 7 (g1_add, g1_add_sel_proj) and Alg. 8 (g1_add_sel): a
-    # product of each level is one row of its operand table, the sums
-    # between the levels are derive jobs
+    # Alg. 9 (g1_double), Alg. 7 (g1_add, g1_add_sel_proj) and Alg. 8
+    # (g1_add_sel) on the role split: a product of each level is one row of
+    # its operand table, the sums between the levels are derive jobs
     def rows(table):
         return len(re.findall(r"\{-?\d+(?:, -?\d+)+\}", re.search(
             r"int8_t " + table + r"\[\d+\]\[\d+\] = \{(.*?)\};", src, re.S).group(1)))
 
-    for l1, derive, products, mul3s in (("G1S_ADD_L1", "g1s_add_derive", 12, 3),
-                                        ("G1S_MADD_L1", "g1s_madd_derive", 11, 2)):
-        assert rows(l1) + rows("G1S_L2") == products, l1
+    for l1, l2, derive, products, mul3s in (
+            ("G1S_DBL_L1", "G1S_DBL_L2", "g1s_dbl_derive", 8, 2),
+            ("G1S_ADD_L1", "G1S_L2", "g1s_add_derive", 12, 3),
+            ("G1S_MADD_L1", "G1S_L2", "g1s_madd_derive", 11, 2)):
+        assert rows(l1) + rows(l2) == products, l1
         assert body(derive).count("fq_mul3(") == mul3s, derive
         assert "fq_mul(" not in body(derive)
     spread = re.search(r"void g1s_body\((?:.*?)\) \{(.*?)\n\}", src, re.S).group(1)

@@ -1,5 +1,6 @@
-"""The Hopper forms of the three adders (csrc/g1_fused.cu, g1s_body) and of
-fq_apply (csrc/g1_affine.cu) on the CPU, through three host models.
+"""The Hopper forms of the doubling and the three adders (csrc/g1_fused.cu,
+g1s_body), of fq_apply and of fq_mul (csrc/g1_affine.cu) on the CPU, through
+four host models.
 
 The product. `_mul_ptx_host` runs the inline PTX of csrc/fq_mul_ptx.cuh as
 the header spells it: the asm statements are read from the source and every
@@ -9,16 +10,18 @@ statement would fail). An instruction that writes no carry must not
 overflow. The result is held against the integer (a b + m p) / 2^384.
 
 The schedule. `_schedule_host` runs a lane as the kernel does with R roles,
-in each of g1s_body's three modes (g1_add, g1_add_sel, g1_add_sel_proj):
-the level-1 products (operand tables read from the source), the derive
-jobs, the level-2 products (table read from the source), the final sums,
-each step's values exchanged through a dict that stands for shared memory,
-each role taking items r, r + R, ... Masked lanes copy the accumulator. It
-is held against the port's plain `_add_plain` / `_add_sel_plain` /
-`_add_sel_proj_plain` and against the JAX package's `add_lf` / `add_sel_lf`
-/ `add_sel_proj_lf` on seeded lanes with the planted kinds of
-chip_smoke.py's `_g1_inputs`. Tolerance 0: field elements after normalize,
-masked lanes bit for bit.
+in each of g1s_body's four modes (g1_add, g1_add_sel, g1_add_sel_proj,
+g1_double): the level-1 products (operand tables read from the source), the
+derive jobs, the level-2 products (tables read from the source), the final
+sums (the doubling's table read from the source), each step's values
+exchanged through a dict that stands for shared memory, each role taking
+items r, r + R, ... Masked lanes copy the accumulator. It is held against
+the port's plain `_add_plain` / `_add_sel_plain` / `_add_sel_proj_plain` /
+`_double_plain` and against the JAX package's `add_lf` / `add_sel_lf` /
+`add_sel_proj_lf` / `double_lf` on seeded lanes with the planted kinds of
+chip_smoke.py's `_g1_inputs` (the doubling: lazy values up to 2p and the
+identity stored with z = 0 and z = p). Tolerance 0: field elements after
+normalize, masked lanes bit for bit.
 
 fq_apply. `_apply_host` executes the statements of `fq_apply_kernel` as
 the source spells them (read from it): the loads, the products on
@@ -26,6 +29,11 @@ the source spells them (read from it): the loads, the products on
 port's `_apply_plain` and the JAX package's `_apply_body` over all four
 case codes, on canonical inputs and lazy representatives. Tolerance 0: the
 stored limbs, before normalize.
+
+fq_mul. `_fq_mul_lanes` maps the lanes of a launch to the threads as the
+kernel and its launcher do (grid, stride and lanes a thread read from the
+source); every lane must come out exactly once, at the lanes a thread the
+source builds and at those that scripts/torch_g1_variants.py sweeps.
 """
 
 import pathlib
@@ -222,6 +230,7 @@ def _table(name):
 
 
 ADD_L1, MADD_L1, L2 = _table("G1S_ADD_L1"), _table("G1S_MADD_L1"), _table("G1S_L2")
+DBL_L1, DBL_L2, DBL_OUT = _table("G1S_DBL_L1"), _table("G1S_DBL_L2"), _table("G1S_DBL_OUT")
 P2 = 2 * Q
 
 
@@ -279,37 +288,63 @@ def _madd_derive(j, s1, s2, pt):
         s2.put(5, _sub(s1[1], b))
 
 
+def _dbl_derive(j, s1, s2, pt):
+    if j == 0:
+        e = _add(s1[0], s1[0])
+        e = _add(e, e)
+        s2.put(1, _add(e, e))                       # e = 8 t0
+    elif j == 1:
+        b = _mul3(s1[2])                            # b3 t2
+        s2.put(0, b)
+        s2.put(4, _add(s1[0], b))                   # y3 = t0 + b3 t2
+        s2.put(3, _sub(s1[0], _mul3(b)))            # t0 = t0 - 3 b3 t2
+    else:
+        s2.put(2, s1[1])
+        s2.put(5, s1[3])
+
+
 def _operand(coords, u, w, neg_y):
     pick = lambda k: (P2 - coords[k]) if (k == 1 and neg_y) else coords[k]
     return _add(pick(u), pick(w)) if w >= 0 else pick(u)
 
 
-MODES = ("add", "madd_sel", "add_sel_proj")      # G1S_ADD, G1S_MADD_SEL, G1S_ADD_SEL_PROJ
+# G1S_ADD, G1S_MADD_SEL, G1S_ADD_SEL_PROJ, G1S_DOUBLE
+MODES = ("add", "madd_sel", "add_sel_proj", "double")
 
 
 def _schedule_host(roles, acc, addend, mode, sign=0, valid=1, mul=_mul_ptx_host):
-    """One lane of g1s_body<mode> with `roles` roles -> (x3, y3, z3) as ints."""
+    """One lane of g1s_body<mode> with `roles` roles -> (x3, y3, z3) as ints.
+    The doubling's addend is its own point (`addend` is not read)."""
     assert mode in MODES
-    mixed = mode == "madd_sel"
-    if mode != "add" and (not valid or (mixed and addend[1] == 0)):
+    mixed, double = mode == "madd_sel", mode == "double"
+    if mode in ("madd_sel", "add_sel_proj") and (not valid or (mixed and addend[1] == 0)):
         return acc                                  # the copy, split over roles
-    neg_y = bool(mode != "add" and sign)
-    l1, derive = (MADD_L1, _madd_derive) if mixed else (ADD_L1, _add_derive)
+    neg_y = bool(mode in ("madd_sel", "add_sel_proj") and sign)
+    if double:
+        addend = acc
+        l1, derive, jobs, l2 = DBL_L1, _dbl_derive, 3, DBL_L2
+    else:
+        l1, derive, jobs, l2 = (MADD_L1, _madd_derive, 5, L2) if mixed else (
+            ADD_L1, _add_derive, 5, L2)
     s1, s2, s3 = _Shared(), _Shared(), _Shared()
     for r in range(roles):                          # level 1
         for j in range(r, len(l1), roles):
             u1, v1, u2, v2 = l1[j]
             s1.put(j, mul(_operand(acc, u1, v1, False), _operand(addend, u2, v2, neg_y)))
     for r in range(roles):                          # __syncthreads, derive
-        for j in range(r, 5, roles):
+        for j in range(r, jobs, roles):
             derive(j, s1, s2, acc)
     for r in range(roles):                          # __syncthreads, level 2
-        for j in range(r, 6, roles):
-            s3.put(j, mul(s2[L2[j][0]], s2[L2[j][1]]))
+        for j in range(r, len(l2), roles):
+            s3.put(j, mul(s2[l2[j][0]], s2[l2[j][1]]))
     out = [None] * 3
     for r in range(roles):                          # __syncthreads, final
         for c in range(r, 3, roles):
-            out[c] = (_sub if c == 0 else _add)(s3[2 * c], s3[2 * c + 1])
+            if double:
+                u, v = DBL_OUT[c]
+                out[c] = _add(s3[u], s3[v]) if v >= 0 else s3[u]
+            else:
+                out[c] = (_sub if c == 0 else _add)(s3[2 * c], s3[2 * c + 1])
     return tuple(out)
 
 
@@ -457,7 +492,8 @@ def test_adders_run_their_modes_on_the_role_split():
     assumes."""
     src = (CSRC / "g1_fused.cu").read_text()
     enum = re.search(r"enum G1sMode \{([^}]*)\}", src).group(1)
-    assert [v.strip() for v in enum.split(",")] == ["G1S_ADD", "G1S_MADD_SEL", "G1S_ADD_SEL_PROJ"]
+    assert [v.strip() for v in enum.split(",")] == ["G1S_ADD", "G1S_MADD_SEL", "G1S_ADD_SEL_PROJ",
+                                                    "G1S_DOUBLE"]
     for kernel, mode in (("g1_add", "G1S_ADD"), ("g1_add_sel", "G1S_MADD_SEL"),
                          ("g1_add_sel_proj", "G1S_ADD_SEL_PROJ")):
         body = re.search(r"\n" + kernel + r"_kernel\(.*?\) \{(.*?)\n\}", src, re.S).group(1)
@@ -471,6 +507,63 @@ def test_adders_run_their_modes_on_the_role_split():
                      src, re.S).group(1)
     assert sorted(" ".join(st.split()) for st in proj.split(";") if st.strip()) == [
         "keep = validp[m] != 0", "neg_y = signp[m] != 0"]
+
+
+def _dbl_lanes(rng):
+    """Points for the doubling: random lazy lanes (< 2p), lanes at 2p and
+    2p - 1 in every coordinate, lazy representatives (v + p), and the
+    identity stored as (0, 1, 0), with z = p, and with lazy x and y."""
+    one = (1 << 384) % Q
+    pts = [tuple(rng.randrange(2 * Q) for _ in range(3)) for _ in range(10)]
+    a, b = rng.randrange(Q), rng.randrange(1, Q)
+    pts += [(2 * Q, 2 * Q, 2 * Q), (2 * Q - 1, 2 * Q, 2 * Q - 1), (2 * Q, 2 * Q - 1, one + Q),
+            (a + Q, b + Q, one + Q), (a, 2 * Q, one),
+            (0, one, 0), (Q, one + Q, Q), (2 * Q, one, 2 * Q), (a + Q, b, 0)]
+    return pts
+
+
+@pytest.mark.parametrize("roles", [4, 6])
+def test_double_schedule_matches_plain_and_jax(roles):
+    """g1_double: Alg. 9 on the role split, four products a level, against
+    `_double_plain` and the JAX package's `double_lf`; lazy lanes up to 2p
+    and the identity with z = 0 and z = p."""
+    pts = _dbl_lanes(random.Random(20240229 + 9))
+    got = [_schedule_host(roles, p, None, "double") for p in pts]
+    cols = [[p[i] for p in pts] for i in range(3)]
+    plain = tgf._double_plain(*(_t(c) for c in cols))
+    ref = jgf.double_lf(jgf.G1LF(*(_j(c) for c in cols)))
+    for i in range(3):
+        mine = [g[i] for g in got]
+        assert all(v < 2 * Q for v in mine)
+        assert [v % Q for v in mine] == [v % Q for v in _ints(plain[i])]
+        assert [v % Q for v in mine] == [v % Q for v in _ints(ref[i])]
+    for k, p in enumerate(pts):
+        if p[2] % Q == 0:
+            assert got[k][2] % Q == 0, "twice the identity is the identity"
+
+
+def test_double_runs_its_mode_on_the_role_split():
+    """g1_double_kernel is g1s_body in the doubling mode with the point as
+    its own addend, launched with G1S_DBL_ROLES roles over G1S_LANES lanes a
+    block, as the host model assumes; its step sizes are the model's, and
+    the file multiplies on fq_mul_ptx alone."""
+    src = (CSRC / "g1_fused.cu").read_text()
+    body = re.search(r"\ng1_double_kernel\(.*?\) \{(.*?)\n\}", src, re.S).group(1)
+    assert " ".join(body.split()) == ("g1s_body<G1S_DOUBLE, G1S_DBL_ROLES>(xp, yp, zp, xp, yp, "
+                                      "zp, nullptr, nullptr, oxp, oyp, ozp, M);")
+    assert "__launch_bounds__(G1S_DBL_THREADS, G1S_DBL_MIN_BLOCKS)\ng1_double_kernel(" in src
+    launch = re.search(r"g1_double_kernel<<<(.*?)>>>", src).group(1)
+    assert launch.replace(" ", "") == "g1s_blocks(M),G1S_DBL_THREADS,0,(cudaStream_t)stream"
+    assert "#define G1S_DBL_THREADS (G1S_DBL_ROLES * G1S_LANES)" in src
+    roles = int(re.search(r"#define G1S_DBL_ROLES (\d+)", src).group(1))
+    assert roles in (4, 6), "test_double_schedule_matches_plain_and_jax runs the kept count"
+    steps = re.search(r"constexpr int N1 = (.*?);", src).group(1)
+    assert " ".join(steps.split()) == "DOUBLE ? 4 : (MIXED ? 5 : 6), ND = DOUBLE ? 3 : 5, N2 = DOUBLE ? 4 : 6"
+    assert (len(DBL_L1), len(DBL_L2), len(DBL_OUT)) == (4, 4, 3)
+    assert all(v1 < 0 and v2 < 0 for _, v1, _, v2 in DBL_L1), "Alg. 9 multiplies coordinates"
+    assert "fq_mul(" not in src and "g1_double_core" not in src
+    assert re.search(r"void g1s_dbl_derive\((?:.*?)\) \{(.*?)\n\}", src, re.S).group(1).count(
+        "fq_mul_ptx(") == 0
 
 
 # -- fq_apply: the kernel's statements, executed on the host ------------------------
@@ -629,3 +722,57 @@ def test_apply_multiplies_on_ptx():
     launch = re.search(r"fq_apply_kernel<<<(.*?)>>>", APPLY_SRC, re.S).group(1)
     assert " ".join(launch.split()) == (
         "(unsigned)((M + FQA_LANES - 1) / FQA_LANES), FQA_LANES, 0, (cudaStream_t)stream")
+
+
+# -- fq_mul: products on fq_mul_ptx, lanes strided over the grid -------------------
+
+
+def _fq_mul_source():
+    src = (CSRC / "g1_affine.cu").read_text()
+    body = re.search(r"\nfq_mul_kernel\(.*?\) \{(.*?)\n\}", src, re.S).group(1)
+    return src, re.sub(r"//[^\n]*", "", body)
+
+
+def test_fq_mul_multiplies_on_ptx():
+    """fq_mul_kernel's product is fq_mul_ptx, one for each lane a thread
+    takes, none on fq_mul."""
+    src, body = _fq_mul_source()
+    assert body.count("fq_mul_ptx(") == 1 and "fq_mul(" not in body and "fq_sq(" not in body
+    assert "__launch_bounds__(FQM_THREADS)\nfq_mul_kernel(" in src
+
+
+def _fq_mul_lanes(m, k=None):
+    """The lanes each thread of an fq_mul launch of m lanes multiplies, as
+    the launcher sizes the grid and the kernel walks it, at k lanes a thread
+    (default: the source's FQM_LANES) -> (count of products of each lane,
+    the number of threads)."""
+    src, body = _fq_mul_source()
+    t = int(re.search(r"#define FQM_THREADS (\d+)", src).group(1))
+    k = k or int(re.search(r"#define FQM_LANES (\d+)", src).group(1))
+    flat = " ".join(body.split())
+    assert flat.startswith("const long G = (long)gridDim.x * FQM_THREADS; "
+                           "long m = (long)blockIdx.x * FQM_THREADS + threadIdx.x; #pragma unroll "
+                           "for (int i = 0; i < FQM_LANES && m < M; i++, m += G) {"), flat
+    launcher = " ".join(re.search(r"unsigned fqm_blocks\(int M\) \{(.*?)\}", src, re.S)
+                        .group(1).split())
+    assert launcher == ("return (unsigned)((M + FQM_THREADS * FQM_LANES - 1) / "
+                        "(FQM_THREADS * FQM_LANES));")
+    assert "fq_mul_kernel<<<fqm_blocks(M), FQM_THREADS, 0, (cudaStream_t)stream>>>" in src
+    grid = (m + t * k - 1) // (t * k) * t
+    hits = np.zeros(m, dtype=np.int64)
+    first = np.arange(grid)
+    for i in range(k):                      # lane g + i G while it is below m
+        lanes = first + i * grid
+        np.add.at(hits, lanes[lanes < m], 1)
+    return hits, grid, t, k
+
+
+@pytest.mark.parametrize("m", [1, 2, 31, 33, 127, 129, 50688, 180224])
+def test_fq_mul_lane_map_covers_every_lane_once(m):
+    """At the source's lanes a thread and at the 2 and 4 that
+    scripts/torch_g1_variants.py builds: every lane once, and no block
+    beyond what the lanes need."""
+    for k in (None, 2, 4):
+        hits, grid, t, k = _fq_mul_lanes(m, k)
+        assert hits.min() == 1 and hits.max() == 1, k
+        assert grid * k >= m and (grid - t) * k < m, k
