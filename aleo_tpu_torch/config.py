@@ -13,9 +13,17 @@
                          form with shared batch inversions
                          (curves/g1_affine.py); 0: the inversion-free
                          projective pipeline (curves/g1_fused.py)     (1)
+  ALEO_TORCH_FIXED_BASE  KZG commits through the fixed-base MSM
+                         (msm/fixed_base.py, precomputed per-window tables
+                         of the SRS): 1 always, auto for commits of
+                         fixed_base.FIXED_BASE_MIN_N points or more, 0 (or
+                         false) never; the twin of the JAX package's
+                         switch, kept for comparison, not a tuning knob (0)
 
-The port has two NTT paths, chosen by size alone, and two variable-base MSM
-paths, chosen by ALEO_TORCH_MSM_AFFINE.
+The port has two NTT paths, chosen by size alone, two variable-base MSM
+paths, chosen by ALEO_TORCH_MSM_AFFINE, and the fixed-base MSM beside them,
+chosen by ALEO_TORCH_FIXED_BASE and the commit's size (no test of the
+device: a commit runs on whichever device the SRS lies on).
 """
 
 from __future__ import annotations
@@ -43,3 +51,10 @@ FUSED_REDUCE = _env("ALEO_TORCH_FUSED_REDUCE", "1") not in ("0", "false")
 # the choice it makes on its accelerator as the default. "0" (or "false")
 # takes the projective pipeline. Read at call time (msm._use_affine).
 MSM_AFFINE_MODE = _env("ALEO_TORCH_MSM_AFFINE", "1")
+
+# Fixed-base commits, the twin of the JAX package's FIXED_BASE_MODE with its
+# default (off: that package keeps the path off after a failing commit group
+# on its accelerator). "1" always, "auto" for commits of
+# >= fixed_base.FIXED_BASE_MIN_N points, "0" (or "false") never. Read at call
+# time (kzg._use_fixed_base).
+FIXED_BASE_MODE = _env("ALEO_TORCH_FIXED_BASE", "0")

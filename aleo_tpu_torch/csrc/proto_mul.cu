@@ -3,9 +3,8 @@
 // product.
 //
 // Three kernels, one thread per element, every value in registers (Fq: 12
-// 32-bit words, fq.cuh; Fr: 8 words, fr.cuh; both on the CIOS product of
-// mont.cuh). They replace the three Pallas kernels of the JAX package's
-// stand-alone tools:
+// 32-bit words, fq.cuh; Fr: 8 words, fr.cuh). They replace the three Pallas
+// kernels of the JAX package's stand-alone tools:
 //
 //   fq_mul_canon    <- tools/proto_pallas_mul.py make_mul
 //                      (_mont_mul_tile, then _cond_sub_p)
@@ -15,10 +14,15 @@
 //   fr_mul          <- tools/microbench_fr_mul.py, the fused kernel around
 //                      limb_kernels.mont_mul (lazy result)
 //
+// fq_mul_canon multiplies on fq_mul_ptx (fq_mul_ptx.cuh: two carry chains a
+// row in inline PTX), one warp a block, as fq_mul of g1_affine.cu does;
+// fq_mul_chain12 and fr_mul run the CIOS product of mont.cuh, 128 threads a
+// block.
+//
 // The TPU bodies' Kogge-Stone carries, row-shift grouping, constant blocks
 // and tiles are matters of that machine: here carries ride 64-bit
-// multiply-adds, the moduli live in __constant__ memory and the ragged edge
-// is masked by `if (m >= M) return`.
+// multiply-adds or the carry flag, the moduli live in __constant__ memory
+// and the ragged edge is masked by `if (m >= M) return`.
 //
 // Bounds, per element. fq_mul_canon and fr_mul move three limb arrays of
 // one int32 word per 16-bit limb (288 and 192 bytes) for one product (2 x
@@ -41,21 +45,30 @@
 #include <stdint.h>
 
 #include "fq.cuh"
+#include "fq_mul_ptx.cuh"
 #include "fr.cuh"
 
 #define PM_THREADS 128
 
-// a*b*R^-1 mod q, canonical (< q). The lazy product of operands < 2q is
-// < 2q, so one conditional subtraction of q finishes it.
-__global__ void __launch_bounds__(PM_THREADS)
+// a*b*R^-1 mod q, canonical (< q). fq_mul_ptx takes operands <= 2q and
+// gives a product < 2q, so one conditional subtraction of q finishes it.
+// One lane a thread, FQC_THREADS (one warp) a block, loads where they are
+// used: the form of fq_mul (g1_affine.cu), whose measurements ranked it
+// above two or four lanes a thread (PERF.md, K3). The block size is a macro
+// so that scripts/torch_g1_variants.py can build other sizes.
+#ifndef FQC_THREADS
+#define FQC_THREADS 32
+#endif
+
+__global__ void __launch_bounds__(FQC_THREADS)
 fq_mul_canon_kernel(const int* __restrict__ a, const int* __restrict__ b,
                     int* __restrict__ out, int M) {
-    long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    long m = (long)blockIdx.x * FQC_THREADS + threadIdx.x;
     if (m >= M) return;
     uint32_t x[FQ_WORDS], y[FQ_WORDS];
     fq_load(x, a, M, m);
     fq_load(y, b, M, m);
-    fq_mul(x, x, y);
+    fq_mul_ptx(x, x, y);
     fq_cond_sub(x, FQ_P);
     fq_store(out, M, m, x);
 }
@@ -102,9 +115,13 @@ fr_mul_kernel(const int* __restrict__ a, const int* __restrict__ b,
 
 static inline unsigned pm_blocks(int M) { return (unsigned)((M + PM_THREADS - 1) / PM_THREADS); }
 
+static inline unsigned fqc_blocks(int M) {
+    return (unsigned)((M + FQC_THREADS - 1) / FQC_THREADS);
+}
+
 extern "C" int fq_mul_canon_launch(const int* a, const int* b, int* out, int M, void* stream) {
     if (M <= 0) return (int)cudaSuccess;
-    fq_mul_canon_kernel<<<pm_blocks(M), PM_THREADS, 0, (cudaStream_t)stream>>>(a, b, out, M);
+    fq_mul_canon_kernel<<<fqc_blocks(M), FQC_THREADS, 0, (cudaStream_t)stream>>>(a, b, out, M);
     return (int)cudaGetLastError();
 }
 

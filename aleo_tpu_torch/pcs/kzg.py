@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's `pcs/kzg.py` on its limbs-first API.
 Commitments and opening proofs are MSMs over the SRS: they run the port's
-device MSM (`msm/msm.py`, batch-affine kernels) on whichever device the SRS
-lies; there is no host-MSM diversion. Verification is host-side pairing
-algebra.
+device MSM on whichever device the SRS lies; there is no host-MSM
+diversion. By default that is the variable-base MSM (`msm/msm.py`); with
+`config.FIXED_BASE_MODE` on, a commit runs the fixed-base MSM over cached
+per-window tables of the SRS (`msm/fixed_base.py`) instead: the same group
+element either way. Verification is host-side pairing algebra.
 """
 
 from __future__ import annotations
@@ -13,10 +15,11 @@ from typing import Sequence
 
 import torch
 
-from .. import params
+from .. import config, params
 from ..curves.g1 import G1Points
 from ..curves import g1_fused as gf
 from ..fields import fr_lf as flf
+from ..msm import fixed_base
 from ..msm.msm import auto_c, horner_windows_host, make_table, msm_fast_host, msm_windows
 from ..reference.curve import G1, G2, pairing_check
 from ..utils import profiling as prof
@@ -75,18 +78,32 @@ def commit_shifted_lf(srs: Srs, coeffs_lf: torch.Tensor, shift: int,
     with prof.stage("kzg/commit"):
         coeffs_lf = pl_lf.pad_to(coeffs_lf, _pad_size(srs, n, shift))
         raw = flf.from_mont(coeffs_lf).T.contiguous()
-        table = _table(srs, shift, coeffs_lf.shape[1])
-        return msm_fast_host(raw, table, c=c)
+        m = coeffs_lf.shape[1]
+        if _use_fixed_base(m):
+            return fixed_base.msm_fixed_host(raw, fixed_base.srs_table(srs, m, shift))
+        return msm_fast_host(raw, _table(srs, shift, m), c=c)
+
+
+def _use_fixed_base(n: int) -> bool:
+    """Whether a commit of n (padded) points runs the fixed-base MSM: by
+    `config.FIXED_BASE_MODE` and the size alone, read at call time."""
+    if config.FIXED_BASE_MODE in ("0", "false"):
+        return False
+    if config.FIXED_BASE_MODE == "1":
+        return True
+    return n >= fixed_base.FIXED_BASE_MIN_N
 
 
 def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
     """Commit a list of limbs-first polynomials, grouped by padded size.
 
-    A size group shares one gather table; its MSMs run one after another and
-    the per-window totals of the whole group are normalized on the device
-    and read back in ONE host transfer. shift > 0 commits X^shift * p_i
-    against the SRS points from `shift` on (shared-offset degree-bound
-    commitments).
+    With the fixed-base MSM on for the size (`_use_fixed_base`), a size
+    group rides ONE fixed-base multi-MSM over the cached table of its SRS
+    slice. Otherwise a size group shares one
+    gather table; its MSMs run one after another and the per-window totals
+    of the whole group are normalized on the device and read back in ONE
+    host transfer. shift > 0 commits X^shift * p_i against the SRS points
+    from `shift` on (shared-offset degree-bound commitments).
     """
     groups = {}
     for i, p in enumerate(polys_lf):
@@ -94,6 +111,16 @@ def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
     out = [None] * len(polys_lf)
     for n_pad, idxs in groups.items():
         assert shift + n_pad <= srs.max_degree + 1
+        if _use_fixed_base(n_pad):
+            for i in idxs:
+                prof.counter("kzg/commit_points", polys_lf[i].shape[1])
+            with prof.stage("kzg/commit"):
+                ft = fixed_base.srs_table(srs, n_pad, shift)
+                raws = [flf.from_mont(pl_lf.pad_to(polys_lf[i], n_pad)).T for i in idxs]
+                pts = fixed_base.msm_fixed_batch_host(torch.stack(raws), ft)
+            for j, i in enumerate(idxs):
+                out[i] = pts[j]
+            continue
         table = _table(srs, shift, n_pad)
         cg = c if c is not None else auto_c(n_pad)
         wins = []

@@ -52,7 +52,9 @@ Phases, each printing one JSON line with its seconds:
             fq_mul_chain12 and fr_mul each against its plain version, equal
             bit for bit (raw limbs, no normalize), at 2^16 elements and at
             1, 129 and 1001, with 0, 1, p - 1, p, 2p - 1 and the largest
-            operand (2q - 1, 4r - 1) planted in every pairing
+            operand (2q - 1, 4r - 1) planted in every pairing; fq_mul_canon
+            (on fq_mul_ptx) also timed at 1, 129 and 1001, its registers
+            from the build log
   msm       msm_host at 2^12 points in both MSM modes (batch-affine and
             projective) and the device entry msm(scalars, points, c=4)
             against the host Pippenger oracle; g1.to_affine, the path of
@@ -87,6 +89,20 @@ Phases, each printing one JSON line with its seconds:
             transforms by path, peak device memory; then k = 8 once in the
             mode that was faster at k = 4 (its first and last proof are
             verified)
+  fixed_base  the fixed-base MSM (msm/fixed_base.py), off by default, at
+            full size: (a) the table of the first 32768 SRS powers at
+            c = 13 (655,360 rows; 1280 sampled rows against host doubling
+            chains; its launches, seconds and bytes), and batch_inv_lf and
+            fq_mul at its 655,360 lanes against the plain product; (b)
+            msm_fixed_host and msm_fixed_batch_host (k = 4) at 2^12 and 2^15
+            points against msm_fast_host in both MSM modes, and one member
+            each against the host Pippenger; (c) F1's commit group, four
+            polynomials of 32767 coefficients at shift 3 through
+            kzg.commit_many_lf with FIXED_BASE_MODE "1" against "0" and one
+            member against the host Pippenger (`f1_shape_agrees`); (d) a
+            transfer proof with the mode "auto", tables built and then
+            cached, beside the default proof: equal bytes, verified; the
+            host oracles run in worker processes meanwhile
   tools     the two stand-alone scripts that run the product kernels,
             tools/torch_proto_mul.py and tools/torch_microbench_fr_mul.py,
             at their default 2^16 elements, counts set to 0 before and read
@@ -106,11 +122,13 @@ has half as many int32 lanes as float32 lanes.
 
 import importlib.util
 import json
+import multiprocessing
 import os
 import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import torch
 
@@ -128,9 +146,11 @@ from aleo_tpu_torch.fields import fr_lf as lf
 from aleo_tpu_torch.fields import limb_kernels as lk
 from aleo_tpu_torch.fields import limbs
 from aleo_tpu_torch.fields import proto_mul as pm
+from aleo_tpu_torch.msm import fixed_base
 from aleo_tpu_torch.msm import msm as msm_mod
 from aleo_tpu_torch.ntt import matntt
 from aleo_tpu_torch.ntt import ntt as dntt
+from aleo_tpu_torch.pcs import kzg
 from aleo_tpu_torch.pcs.srs import Srs
 from aleo_tpu_torch.program.examples import load_example
 from aleo_tpu_torch.program.interpreter import Registry
@@ -188,7 +208,13 @@ MADS_PER_FR_PRODUCT = 2 * 2 * 8 * 8      # the same two passes over 8 words
 M_PROTO = 1 << 16                       # the tools' default element count
 MSM_BATCH_N, MSM_BATCH_K = 32768, 4     # a transfer proof's largest commits
 BATCH_K, BATCH_K_ONCE = 4, 8
-PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "tools"}
+# phase fixed_base: the table over the first 32768 SRS powers at c = 13,
+# MSMs at 2^12 and 2^15 points (k = 4 in a batch), F1's commit group
+FB_N, FB_SIZES, FB_K = 1 << 15, (1 << 12, 1 << 15), 4
+FB_ROW_POINTS = 64                      # x 20 windows = 1280 rows held against the host
+F1_N, F1_SHIFT, F1_K = 32767, 3, 4
+FB_ORACLE_C = 12                        # the host Pippenger's window at these sizes
+PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
 _G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
@@ -841,6 +867,14 @@ def _proto_kernels(res):
             "plain_ms": cuda_ms(lambda: plain(a, b), 3),
             "bytes": 3 * 4 * nl * m, "mads": mads * m,
         }
+    # the redesigned canonical product: its registers, and its time at the
+    # narrow widths it is held at
+    res["fq_mul_canon"]["ptxas"] = _build.ptxas_info().get("fq_mul_canon_kernel",
+                                                           "not built in this process")
+    for w in (1, 129, 1001):
+        a, b, _ = _proto_operands(rng, w, Q, 2 * Q, L)
+        res["fq_mul_canon"][f"ms_{w}_lanes"] = kernel_ms(lambda t: pm.fq_mul_canon(*t),
+                                                         copies((a, b), 4))
 
 
 def random_fr(n, seed):
@@ -1402,6 +1436,209 @@ def phase_batch(srs, keys, single_s):
             **{k: runs["projective"]["launches"][k] for k in PROJECTIVE_KERNELS}}
 
 
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _prove_transfer_timed(keys, reg):
+    """One seeded transfer proof, as phase transfer proves it, with every
+    count set to 0 just before and read just after -> (proof, seconds,
+    launches, stage timers)."""
+    reset_launches()
+    prof.reset()
+    prof.enable()
+    try:
+        ep, seconds = _timed(lambda: pipeline.prove_execution(
+            keys, reg, transfer_inputs(120), caller=SENDER, rng_nonce=lambda: 11,
+            rng=random.Random(SEED)))
+        return ep, seconds, all_launches(), prof.report()
+    finally:
+        prof.enable(False)
+
+
+def phase_fixed_base(srs, keys):
+    """The fixed-base MSM (msm/fixed_base.py) and kzg's fixed-base branches,
+    off by default, at full size: (a) the table of the first 32768 SRS
+    powers at c = 13, and batch_inv_lf and fq_mul at its 655,360 lanes;
+    (b) fixed-base MSMs at 2^12 and 2^15 points against the variable-base
+    ones in both modes; (c) F1's commit group (k = 4, n = 32767, shift = 3);
+    (d) a transfer proof with the mode "auto" against the default proof.
+    The host Pippenger oracles run in worker processes beside the card's
+    work. Every agreement is printed before the phase fails on one."""
+    t0 = time.time()
+    rng = random.Random(SEED + 20)
+    assert config.FIXED_BASE_MODE == "0", "the fixed-base MSM must be off by default"
+    host = srs.host_affine()
+    pw = srs.powers
+    c = fixed_base.DEFAULT_C
+    W = fixed_base._nwin(c)
+    agrees = {}
+    oracles = {}                        # name -> (future of the host's point, the card's)
+    fixed_base.clear_cache()
+    pool = ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # (a) the table, and the two kernels of its normalization at its width
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ft, build_s = _timed(lambda: fixed_base.srs_table(srs, FB_N, 0))
+        build_launches = _nonzero(all_launches())
+        assert W == 20 and ft.rows.shape == (W * FB_N, 2 * L), ft.rows.shape
+        assert build_launches == {"g1_double": (W - 1) * c, "fq_inv_up": 2, "fq_fermat": 1,
+                                  "fq_inv_down": 2, "fq_mul": 2}, build_launches
+        pts = sorted({0, FB_N - 1, *rng.sample(range(FB_N), FB_ROW_POINTS - 2)})
+        ids = torch.tensor([w * FB_N + i for i in pts for w in range(W)], device=DEV)
+        sample = limbs.to_numpy(ft.rows[ids])
+        assert all(v < Q for v in limbs.limbs_to_ints(sample.reshape(-1, L))), \
+            "a table row is not canonical"
+        xs = limbs.from_mont_host(sample[:, :L], Q)
+        ys = limbs.from_mont_host(sample[:, L:], Q)
+        j = 0
+        for i in pts:
+            q = host[i]
+            for w in range(W):          # row w * N + i holds 2^(13 w) P_i
+                assert (xs[j], ys[j]) == q, f"table row {w * FB_N + i} disagrees with the host"
+                j += 1
+                for _ in range(c):
+                    q = G1.double(q)
+        m = W * FB_N
+        g = torch.Generator(device=DEV)
+        g.manual_seed(SEED + 21)
+        d = torch.randint(0, 1 << 16, (L, m), dtype=torch.int32, device=DEV, generator=g)
+        d[L - 1] %= 0x35C                                   # below 2p
+        d[:, : len(INV_EDGE)] = fq_tensor(INV_EDGE)
+        assert not lk.is_zero_mod_p(lk.get_fq(), d).any()
+        reset_launches()
+        inv = ga.batch_inv_lf(d)
+        inv_launches = _nonzero(all_launches())
+        assert inv_launches == {"fq_inv_up": 2, "fq_fermat": 1, "fq_inv_down": 2}, inv_launches
+        prod = ga._mul_plain(d, inv)
+        assert torch.equal(norm(prod), ga._one_mont(DEV).expand(L, m)), \
+            f"batch_inv_lf is wrong at {m} lanes"
+        assert torch.equal(ga.fq_mul(d, inv), prod), \
+            f"fq_mul disagrees with its plain version at {m} lanes"
+        del d, inv, prod
+        table = {"seconds": build_s, "launches": build_launches, "rows": W * FB_N,
+                 "bytes": fixed_base.cached_bytes(), "rows_checked": j,
+                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                 "batch_inv_lf_and_fq_mul_lanes": m, "batch_inv_lf_launches": inv_launches}
+
+        # (b) fixed-base against variable-base MSMs, and the host
+        msms = {}
+        for n in FB_SIZES:
+            tf = fixed_base.srs_table(srs, n, 0)
+            tv = msm_mod.make_table(g1mod.G1Points(pw.x[:n], pw.y[:n], pw.z[:n]))
+            raw = random_fr(FB_K * n, SEED + 22 + n).T.reshape(FB_K, n, params.FR_LIMBS)
+            raw = raw.contiguous()
+            single = lambda: fixed_base.msm_fixed_host(raw[0], tf)
+            batch = lambda: fixed_base.msm_fixed_batch_host(raw, tf)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            one_pt, single_first_s = _timed(single)
+            single_launches = _nonzero(all_launches())
+            reset_launches()
+            pts4, batch_first_s = _timed(batch)
+            batch_launches = _nonzero(all_launches())
+            _, single_s = _timed(single)
+            _, batch_s = _timed(batch)
+            for kname in AFFINE_KERNELS + ("g1_add", "g1_double", "g1_normalize"):
+                assert batch_launches.get(kname, 0) > 0, f"{kname} not launched by the fixed MSM"
+            assert "fq_mul" not in batch_launches, "a cached table was built again"
+            row = {"fixed_seconds": single_s, "fixed_first_seconds": single_first_s,
+                   "fixed_batch_seconds": batch_s, "fixed_batch_first_seconds": batch_first_s,
+                   "fixed_launches": single_launches, "fixed_batch_launches": batch_launches,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            same_pts = pts4[0] == one_pt
+            try:
+                for mode, name in (("1", "affine"), ("0", "projective")):
+                    config.MSM_AFFINE_MODE = mode
+                    var1 = lambda: msm_mod.msm_fast_host(raw[0], tv)
+                    var4 = lambda: [msm_mod.msm_fast_host(raw[p], tv) for p in range(FB_K)]
+                    _timed(var1)
+                    _, var1_s = _timed(var1)
+                    want, var4_s = _timed(var4)
+                    same_pts = same_pts and pts4 == want
+                    row[f"variable_{name}_seconds"] = var1_s
+                    row[f"variable_{name}_four_seconds"] = var4_s
+            finally:
+                config.MSM_AFFINE_MODE = "1"
+            agrees[f"msm_{n}_fixed_equals_variable"] = same_pts
+            oracles[f"msm_{n}_member0"] = (pool.submit(
+                msm_pippenger_jac, limbs.limbs_to_ints(limbs.to_numpy(raw[0])), host[:n],
+                FB_ORACLE_C), one_pt)
+            msms[str(n)] = row
+
+        # (c) F1's shape: k = 4 polynomials of 32767 coefficients at shift 3
+        # over the 32770 powers, so n_pad clamps to 32767 and s = 2
+        assert kzg._pad_size(srs, F1_N, F1_SHIFT) == F1_N
+        s_f1 = fixed_base._sub_split(c, F1_N, F1_K)
+        assert s_f1 == 2
+        polys = [random_fr(F1_N, SEED + 30 + i) for i in range(F1_K)]
+        try:
+            config.FIXED_BASE_MODE = "1"
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            f1_fixed, f1_first_s = _timed(lambda: kzg.commit_many_lf(srs, polys, shift=F1_SHIFT))
+            f1_launches = _nonzero(all_launches())
+            _, f1_s = _timed(lambda: kzg.commit_many_lf(srs, polys, shift=F1_SHIFT))
+            f1_peak = torch.cuda.max_memory_allocated()
+        finally:
+            config.FIXED_BASE_MODE = "0"
+        f1_var, f1_var_s = _timed(lambda: kzg.commit_many_lf(srs, polys, shift=F1_SHIFT))
+        agrees["f1_fixed_equals_variable"] = f1_fixed == f1_var
+        oracles["f1_member0"] = (pool.submit(
+            msm_pippenger_jac, lf.decode(polys[0]), host[F1_SHIFT : F1_SHIFT + F1_N],
+            FB_ORACLE_C), f1_fixed[0])
+        f1 = {"n": F1_N, "k": F1_K, "shift": F1_SHIFT, "c": c, "windows": W,
+              "sub_split": s_f1, "fixed_seconds": f1_s, "fixed_first_seconds": f1_first_s,
+              "fixed_first_launches": f1_launches, "variable_seconds": f1_var_s,
+              "peak_device_bytes": f1_peak}
+
+        # (d) a transfer proof with the mode "auto", beside the default one,
+        # tables built by the first of the two
+        reg = load_example("simple_token")
+        if keys is None:
+            keys = pipeline.synthesize_keys(reg, "token.aleo", "transfer", srs=srs, cache=False)
+        dims = (keys.index.n, keys.index.m, keys.index.ell)
+        fixed_base.clear_cache()
+        ep0, default_s, default_launches, default_stages = _prove_transfer_timed(keys, reg)
+        default_bytes = proof_to_bytes(ep0.proof, *dims)
+        auto = {}
+        try:
+            config.FIXED_BASE_MODE = "auto"
+            for run in ("tables_built", "tables_cached"):
+                ep, secs, launches, stages = _prove_transfer_timed(keys, reg)
+                agrees[f"auto_proof_{run}_bytes_equal"] = proof_to_bytes(ep.proof, *dims) \
+                    == default_bytes
+                auto[run] = {"prove_seconds": secs, "launches": launches,
+                             "kzg_commit_seconds": stages["kzg/commit"]["seconds"],
+                             "stages": stages}
+        finally:
+            config.FIXED_BASE_MODE = "0"
+        agrees["auto_proof_verifies"] = pipeline.verify_execution(keys, ep, debug=True)
+        for kname in AFFINE_KERNELS + ("fq_mul", "g1_double", "g1_add", "g1_normalize"):
+            assert auto["tables_built"]["launches"][kname] > 0, \
+                f"{kname} was never launched during the auto proof"
+        proof = {"default": {"prove_seconds": default_s, "launches": default_launches,
+                             "kzg_commit_seconds": default_stages["kzg/commit"]["seconds"]},
+                 **auto, "tables": sorted(k[2:4] for k in fixed_base._CACHE),
+                 "tables_bytes": fixed_base.cached_bytes()}
+
+        for name, (fut, pt) in oracles.items():
+            agrees[f"{name}_equals_host_pippenger"] = fut.result() == pt
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        fixed_base.clear_cache()
+    agrees["f1_shape_agrees"] = (agrees["f1_fixed_equals_variable"]
+                                 and agrees["f1_member0_equals_host_pippenger"])
+    say({"phase": "fixed_base", "f1_shape_agrees": agrees["f1_shape_agrees"],
+         "agrees": agrees, "table": table, "msm": msms, "f1": f1, "proof": proof,
+         "seconds": round(time.time() - t0, 3)})
+    failed = [k for k, v in agrees.items() if not v]
+    assert not failed, f"fixed_base: disagreement in {failed}"
+    return auto["tables_built"]["launches"]
+
+
 def _load_tool(name):
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(name, os.path.join(here, "tools", name + ".py"))
@@ -1434,11 +1671,11 @@ def main(argv):
     card = phase_device()
     kres = phase_kernels() if "kernels" in want else None
     srs = None
-    if want & {"msm", "micro", "transfer", "batch"}:
+    if want & {"msm", "micro", "transfer", "batch", "fixed_base"}:
         t0 = time.time()
         # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
         # (micro needs fewer and takes the same one)
-        deg = 32769 if want & {"msm", "transfer", "batch"} else 8193
+        deg = 32769 if want & {"msm", "transfer", "batch", "fixed_base"} else 8193
         srs = Srs.generate(deg, device=DEV)
         say({"phase": "srs", "powers": deg + 1, "seconds": round(time.time() - t0, 3)})
     to_affine_launches = None
@@ -1452,18 +1689,22 @@ def main(argv):
     if "transfer" in want:
         launches, keys, single_s = phase_transfer(srs)
     batch_launches = phase_batch(srs, keys, single_s) if "batch" in want else None
+    fb_launches = phase_fixed_base(srs, keys) if "fixed_base" in want else None
     tool_launches = phase_tools() if "tools" in want else None
-    if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches):
+    if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches,
+                    fb_launches):
         # `launches` is a kernel's count on the main path that runs it: the
         # transfer proof (K1-K12 and the inversion tree), to_affine (fq_mul),
         # the two scripts (the product kernels); `launches_batch` its count
-        # in the k = 4 batch
+        # in the k = 4 batch; `launches_fixed_base` in the transfer proof
+        # with the fixed-base MSM on ("auto") that builds its tables
         on_path = {**launches, "fq_mul": to_affine_launches["fq_mul"],
                    **{k: tool_launches[k] for k in PROTO_KERNELS}}
         say({"kernels": [
             {"name": name, "route": "cuda",
              "source": KERNELS[name][0], "replaces": KERNELS[name][1],
              "launches": on_path[name], "launches_batch": batch_launches[name],
+             "launches_fixed_base": fb_launches[name],
              "max_abs_err": r["max_abs_err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None}

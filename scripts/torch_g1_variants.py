@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Build settings of the projective kernels, fq_apply and fq_mul, tried out.
+"""Build settings of the projective kernels, fq_apply, fq_mul and fq_mul_canon,
+tried out.
 
     python3 scripts/torch_g1_variants.py [--families F,...] [--baseline DIR ...]
                                          [--rounds N] [out.json]
 
-Four families of kernels, each built from its source once for each variant
+Five families of kernels, each built from its source once for each variant
 below, all builds at once; for each variant the script prints what
 `-Xptxas -v` says of the kernels (registers, spill bytes, shared memory)
 and the device time of one launch at each width (events around replays of
@@ -28,6 +29,9 @@ a CUDA graph whose launches rotate over distinct buffers, more than the
   k = 4).
 - mul: fq_mul of the same file, FQM_LANES lanes a thread, strided by the
   grid. Widths 2 (to_affine's), 128, 50688 and 180224.
+- canon: fq_mul_canon of `aleo_tpu_torch/csrc/proto_mul.cu` (the tools'
+  canonical Fq product), one lane a thread, FQC_THREADS threads a block.
+  Widths 1, 129, 1001 and 65536 (the tools' default).
 
 `--families` picks some of them (default: all). Each --baseline DIR (another
 checkout, for example the parent commit unpacked with `git archive`; same
@@ -116,6 +120,17 @@ FAMILIES = {
             ("k4", ["-DFQM_LANES=4"]),
         ],
         "sets": 8,                                  # 117 MB at 50688 lanes
+    },
+    "canon": {
+        "source": "proto_mul.cu",
+        "kernels": {"fq_mul_canon": ("cc", "c", ("all",))},
+        "widths": (1, 129, 1001, 1 << 16),
+        "variants": [
+            ("t32", []),                            # the default: one warp a block
+            ("t64", ["-DFQC_THREADS=64"]),
+            ("t128", ["-DFQC_THREADS=128"]),
+        ],
+        "sets": 8,                                  # 151 MB at 65536 lanes
     },
 }
 

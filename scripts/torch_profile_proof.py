@@ -17,8 +17,11 @@ logged during the proof and replayed alone, on random data of the same
 sizes, once untraced and once under the profiler; `ntt_side` holds the
 calls by size, their wall seconds, kernel launches and device time. With
 ALEO_TORCH_MATNTT_MIN set past every size the same script profiles the
-butterfly network, and with ALEO_TORCH_MSM_AFFINE=0 the proof whose MSMs take
-the projective pipeline (`msm_affine_mode` in the result says which ran).
+butterfly network, with ALEO_TORCH_MSM_AFFINE=0 the proof whose MSMs take
+the projective pipeline (`msm_affine_mode` in the result says which ran), and
+with ALEO_TORCH_FIXED_BASE=auto the proof whose commits take the fixed-base
+MSM (`fixed_base_mode`; the warm-up proof builds the tables, the profiled one
+finds them cached).
 Needs a CUDA device.
 """
 
@@ -194,6 +197,7 @@ def main(argv):
     result = {
         "card": card, "circuit": which, "n": keys.index.n, "m": keys.index.m,
         "msm_affine_mode": config.MSM_AFFINE_MODE,
+        "fixed_base_mode": config.FIXED_BASE_MODE,
         "proof_seconds": plain_s, "proof_seconds_traced": traced_s,
         "device_kernel_seconds": device_s,
         "device_busy_share_traced": device_s / traced_s if traced_s else None,

@@ -1,6 +1,6 @@
 """The Hopper forms of the doubling and the three adders (csrc/g1_fused.cu,
-g1s_body), of fq_apply and of fq_mul (csrc/g1_affine.cu) on the CPU, through
-four host models.
+g1s_body), of fq_apply and of fq_mul (csrc/g1_affine.cu) and of fq_mul_canon
+(csrc/proto_mul.cu) on the CPU, through four host models.
 
 The product. `_mul_ptx_host` runs the inline PTX of csrc/fq_mul_ptx.cuh as
 the header spells it: the asm statements are read from the source and every
@@ -34,6 +34,10 @@ fq_mul. `_fq_mul_lanes` maps the lanes of a launch to the threads as the
 kernel and its launcher do (grid, stride and lanes a thread read from the
 source); every lane must come out exactly once, at the lanes a thread the
 source builds and at those that scripts/torch_g1_variants.py sweeps.
+
+fq_mul_canon (csrc/proto_mul.cu). Its statements, read from the source, run
+on `_mul_ptx_host` and one subtraction of q, against a*b*R^-1 mod q and the
+plain version's limbs; its grid covers every lane once.
 """
 
 import pathlib
@@ -776,3 +780,71 @@ def test_fq_mul_lane_map_covers_every_lane_once(m):
         hits, grid, t, k = _fq_mul_lanes(m, k)
         assert hits.min() == 1 and hits.max() == 1, k
         assert grid * k >= m and (grid - t) * k < m, k
+
+
+# -- fq_mul_canon (csrc/proto_mul.cu): fq_mul_ptx and one subtraction ------------
+
+
+def _canon_source():
+    src = (CSRC / "proto_mul.cu").read_text()
+    body = re.search(r"\nfq_mul_canon_kernel\(.*?\) \{(.*?)\n\}", src, re.S).group(1)
+    return src, [" ".join(st.split()) for st in re.sub(r"//[^\n]*", "", body).split(";")
+                 if st.strip()]
+
+
+def test_fq_mul_canon_multiplies_on_ptx_and_subtracts_once():
+    """fq_mul_canon_kernel's statements, read from the source, executed on
+    the PTX host model: the product of operands up to 2q (the edge values
+    and random ones) and one conditional subtraction of q give a*b*R^-1 mod
+    q, canonical, equal to the plain version's limbs bit for bit."""
+    from aleo_tpu_torch.fields import proto_mul as pm
+
+    src, sts = _canon_source()
+    assert sts == [
+        "long m = (long)blockIdx.x * FQC_THREADS + threadIdx.x",
+        "if (m >= M) return",
+        "uint32_t x[FQ_WORDS], y[FQ_WORDS]",
+        "fq_load(x, a, M, m)",
+        "fq_load(y, b, M, m)",
+        "fq_mul_ptx(x, x, y)",
+        "fq_cond_sub(x, FQ_P)",
+        "fq_store(out, M, m, x)",
+    ], sts
+    assert "__launch_bounds__(FQC_THREADS)\nfq_mul_canon_kernel(" in src
+    assert '#include "fq_mul_ptx.cuh"' in src
+    rng = random.Random(122)
+    pairs = [(x, y) for x in EDGE[:-2] + [EDGE[-1]] for y in EDGE[:-2] + [EDGE[-1]]]
+    pairs += [(rng.randrange(2 * Q), rng.randrange(2 * Q)) for _ in range(100)]
+    rinv = pow(1 << 384, -1, Q)
+    got = []
+    for x, y in pairs:
+        v = _mul_ptx_host(x, y)
+        v = v - Q if v >= Q else v                 # fq_cond_sub(x, FQ_P)
+        assert v == x * y * rinv % Q, (x, y)
+        got.append(v)
+    a = limbs.to_tensor(limbs.ints_to_limbs([x for x, _ in pairs], L).T.copy(), "cpu")
+    b = limbs.to_tensor(limbs.ints_to_limbs([y for _, y in pairs], L).T.copy(), "cpu")
+    want = pm.fq_mul_canon_plain(a, b)
+    assert torch.equal(want, limbs.to_tensor(limbs.ints_to_limbs(got, L).T.copy(), "cpu"))
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 65536])
+def test_fq_mul_canon_lane_map_covers_every_lane_once(m):
+    """The grid of ceil(M / FQC_THREADS) blocks of FQC_THREADS threads (32,
+    one warp, read from the source) with one lane a thread: every lane once,
+    and no block beyond what the lanes need. fq_mul_chain12 and fr_mul keep
+    their 128-thread blocks."""
+    src, sts = _canon_source()
+    t = int(re.search(r"#define FQC_THREADS (\d+)", src).group(1))
+    assert t == 32 and int(re.search(r"#define PM_THREADS (\d+)", src).group(1)) == 128
+    blocks = " ".join(re.search(r"unsigned fqc_blocks\(int M\) \{(.*?)\}", src, re.S)
+                      .group(1).split())
+    assert blocks == "return (unsigned)((M + FQC_THREADS - 1) / FQC_THREADS);"
+    assert "fq_mul_canon_kernel<<<fqc_blocks(M), FQC_THREADS, 0, (cudaStream_t)stream>>>" in src
+    for other in ("fq_mul_chain12", "fr_mul"):
+        assert f"{other}_kernel<<<pm_blocks(M), PM_THREADS, 0," in src
+    grid = (m + t - 1) // t
+    lane = np.arange(grid)[:, None] * t + np.arange(t)[None, :]     # blockIdx.x * T + threadIdx.x
+    hits = np.bincount(lane[lane < m], minlength=m)
+    assert hits.min() == 1 and hits.max() == 1 and hits.size == m
+    assert (grid - 1) * t < m <= grid * t
