@@ -99,18 +99,18 @@ def scan_mul(a, reverse: bool = False):
 
 
 def inv(a):
-    """Elementwise inverse. The reference runs a 253-step Fermat scan on the
-    device; the value is the modular inverse, which is taken here on host
+    """Elementwise inverse, inv(0) = 0. The reference runs a 253-step Fermat
+    scan on the device; the value is its a^(r-2), which is taken here on host
     integers (this is only ever called on a handful of lanes)."""
     xs = decode(a.reshape(L, -1))
-    return encode([pow(int(x), -1, R) for x in xs], device=a.device).reshape(a.shape)
+    return encode([pow(int(x), R - 2, R) for x in xs], device=a.device).reshape(a.shape)
 
 
 def batch_inv(a):
     """Batched inversion along lanes (prefix/suffix products + one
     inversion for each batch row, all rows' totals inverted after one
-    readback). No zero entries (zeros produce garbage, as in the
-    reference)."""
+    readback). A zero entry makes its whole row zero, as in the
+    reference."""
     n = a.shape[-1]
     if n == 1:
         return inv(a)
@@ -174,3 +174,16 @@ def one(n: int, device=None) -> torch.Tensor:
 def zero(n: int, device=None) -> torch.Tensor:
     device = limbs.resolve_device(device)
     return torch.zeros((L, n), dtype=STORE, device=device)
+
+
+# Layout converters at module boundaries.
+
+
+def from_ll(a: torch.Tensor) -> torch.Tensor:
+    """(N, L) limbs-last -> (L, N) limbs-first."""
+    return a.T
+
+
+def to_ll(a: torch.Tensor) -> torch.Tensor:
+    """(L, N) limbs-first -> (N, L) limbs-last."""
+    return a.T

@@ -219,3 +219,16 @@ def coset_intt_lf(x: torch.Tensor, shift: int) -> torch.Tensor:
     d = domain(x.shape[-1])
     y = lf.mul(_run_lf(x, True), d.n_inv_mont(x.device))
     return lf.mul(y, c.shift_pows_lf(x.device, True))
+
+
+# -- limbs-last (n, L) coset API ------------------------------------------------
+
+
+def coset_ntt(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """Evaluate coefficients on the coset shift*H. x: (n, L), canonical out."""
+    return lf.normalize(coset_ntt_lf(x.T, shift)).T.contiguous()
+
+
+def coset_intt(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """Coset evaluations -> coefficients; x: (n, L), canonical out."""
+    return lf.normalize(coset_intt_lf(x.T, shift)).T.contiguous()

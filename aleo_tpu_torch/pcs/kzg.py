@@ -1,6 +1,8 @@
 """KZG polynomial commitments (commit/open/batch-open) + host verify.
 
-Counterpart of the JAX package's `pcs/kzg.py` on its limbs-first API.
+Counterpart of the JAX package's `pcs/kzg.py`: the limbs-first API of the
+prover, and the limbs-last API on (n, L) coefficient vectors (`commit`,
+`commit_host`, `open_at`, `batch_open_at`) as adapters over it.
 Commitments and opening proofs are MSMs over the SRS: they run the port's
 device MSM on whichever device the SRS lies; there is no host-MSM
 diversion. By default that is the variable-base MSM (`msm/msm.py`); with
@@ -20,7 +22,9 @@ from ..curves.g1 import G1Points
 from ..curves import g1_fused as gf
 from ..fields import fr_lf as flf
 from ..msm import fixed_base
-from ..msm.msm import auto_c, horner_windows_host, make_table, msm_fast_host, msm_windows
+from ..msm.msm import (
+    auto_c, horner_windows_host, make_table, msm, msm_fast_host, msm_windows,
+)
 from ..reference.curve import G1, G2, pairing_check
 from ..utils import profiling as prof
 from . import poly_lf as pl_lf
@@ -51,6 +55,52 @@ def verify(srs: Srs, commitment, z: int, y: int, proof_w) -> bool:
     return pairing_check(
         [(c_minus_y, srs.g2_gen), (G1.neg(proof_w), tau_minus_z)]
     )
+
+
+# -- limbs-last API ((n, L) coefficient vectors) ---------------------------------
+#
+# Adapters over the limbs-first API below: coefficients are moved to (L, n)
+# and evaluations come back canonical, as (L,) limbs-last vectors.
+
+
+def commit(srs: Srs, coeffs: torch.Tensor, c: int | None = None) -> G1Points:
+    """Commit to a coefficient vector (n, L) Montgomery limbs: C = sum c_i
+    [tau^i]G, one projective point (canonical limbs) from the device MSM
+    with its device window combine, on the SRS's device."""
+    n = coeffs.shape[0]
+    assert n <= srs.max_degree + 1, "polynomial exceeds SRS degree"
+    m = _pad_size(srs, n)
+    raw = flf.from_mont(pl_lf.pad_to(coeffs.T.contiguous(), m)).T.contiguous()
+    p = srs.powers
+    return msm(raw, G1Points(p.x[:m], p.y[:m], p.z[:m]), c=c, device=srs.device)
+
+
+def commit_host(srs: Srs, coeffs: torch.Tensor, c: int | None = None):
+    """Commit and decode -> host affine point: the device bucket pipeline
+    with the host window combine (`commit_lf`), on the SRS's device."""
+    return commit_lf(srs, coeffs.T.contiguous(), c=c)
+
+
+def open_at(srs: Srs, coeffs: torch.Tensor, z: torch.Tensor, c: int | None = None):
+    """Opening proof W = [q(tau)]G with q = (p - p(z))/(X - z); z (L,).
+    Returns (W host affine point, y (L,) Montgomery evaluation)."""
+    w, y = open_at_lf(srs, coeffs.T.contiguous(), z[:, None], c=c)
+    return w, flf.normalize(y)[:, 0]
+
+
+def batch_open_at(
+    srs: Srs,
+    polys: Sequence[torch.Tensor],
+    z: torch.Tensor,
+    gamma: torch.Tensor,
+    c: int | None = None,
+):
+    """One opening proof for many polynomials at one point via the random
+    linear combination sum gamma^i p_i. Returns (W host point, [y_i] (L,)
+    Montgomery)."""
+    w, ys = batch_open_at_lf(srs, [p.T.contiguous() for p in polys], z[:, None],
+                             gamma[:, None], c=c)
+    return w, [flf.normalize(y)[:, 0] for y in ys]
 
 
 # -- limbs-first API (prover pipeline; (L, n) coefficient tensors) --------------

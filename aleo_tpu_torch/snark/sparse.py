@@ -1,9 +1,10 @@
 """Static sparse matrix-vector products over Fr on the device.
 
-Counterpart of the JAX package's `snark/sparse.py` (limbs-first path). R1CS
-matrices are fixed per circuit, so the indexer presorts the COO entries (by
-row for M z, by col for M^T u) and the device side is a gather + segmented
-Hillis-Steele scan + scatter over Fr scalars.
+Counterpart of the JAX package's `snark/sparse.py`: the limbs-first path,
+and `spmv`, its limbs-last adapter. R1CS matrices are fixed per circuit, so
+the indexer presorts the COO entries (by row for M z, by col for M^T u) and
+the device side is a gather + segmented Hillis-Steele scan + scatter over Fr
+scalars.
 """
 
 from __future__ import annotations
@@ -85,3 +86,8 @@ def spmv_lf(tables: SparseTables, x: torch.Tensor) -> torch.Tensor:
     # every non-end lane lands on the dummy lane `size`, which is dropped
     out[..., idx] = seg
     return out[..., :size].contiguous()
+
+
+def spmv(tables: SparseTables, x: torch.Tensor) -> torch.Tensor:
+    """Limbs-last spmv: x (n, L) -> y (out_size, L), canonical."""
+    return lf.normalize(spmv_lf(tables, x.T)).T.contiguous()

@@ -107,6 +107,30 @@ Phases, each printing one JSON line with its seconds:
             tools/torch_proto_mul.py and tools/torch_microbench_fr_mul.py,
             at their default 2^16 elements, counts set to 0 before and read
             after
+  limbs_last  the limbs-last device API at the sizes of a transfer proof
+            (m = |K| = 32768, n = |H| = 8192), over the same SRS: FR_RING
+            and FQ_RING mul, add, sub, neg, batch_inv and inv at 2^16 lanes
+            against host integers on 64 sampled lanes (zero lanes planted for
+            inv), every output lane canonical, FR_RING.mul timed beside
+            fr_lf.mul; coset_ntt / coset_intt at 2^16 (round trip, one
+            evaluation against host Horner); eval_coeffs and
+            divide_by_linear_via_domain at m coefficients (q(x)(x - z) + y =
+            p(x) at a random x); poly_mul of two 16384-coefficient
+            polynomials and divide_by_vanishing of 40960 coefficients by n,
+            each checked at a random point; kzg.commit and commit_host of m
+            coefficients equal to commit_lf; open_at and batch_open_at over
+            4 polynomials of n coefficients verify, and fail on a tampered
+            y; a UniversalSrsBlob of 4096 powers through bytes and to_srs()
+            with no device lands on the card with the SRS's powers; the
+            kernels' launch counts of the phase
+  record_scan  a wallet's record scan (upstream:rust/src/api/blocking.rs:
+            261-318, encryptor.rs:47,66): Poseidon hash_batch at rates 2, 4
+            and 8 over 16384 rows of 4 inputs and permute at each rate, 32
+            rows against the host oracle; shared_secrets with a full-width
+            view scalar over 16384 ephemeral points (running sums of two
+            random points), 16 lanes against the host ladder; the ladder's
+            steps, its batch_inv readbacks, and the CUDA launches of one
+            ladder step from torch.profiler
 
 It fails (non-zero exit, no result line) without CUDA, if the build fails,
 or if any phase fails. The last line of its output is
@@ -137,6 +161,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from aleo_tpu_torch import _build, config, params
+from aleo_tpu_torch.curves import edwards_device as ed
 from aleo_tpu_torch.curves import g1 as g1mod
 from aleo_tpu_torch.curves import g1_affine as ga
 from aleo_tpu_torch.curves import g1_fused as gf
@@ -146,22 +171,28 @@ from aleo_tpu_torch.fields import fr_lf as lf
 from aleo_tpu_torch.fields import limb_kernels as lk
 from aleo_tpu_torch.fields import limbs
 from aleo_tpu_torch.fields import proto_mul as pm
+from aleo_tpu_torch.fields.modring import FQ_RING, FR_RING
+from aleo_tpu_torch.hash import poseidon
 from aleo_tpu_torch.msm import fixed_base
 from aleo_tpu_torch.msm import msm as msm_mod
 from aleo_tpu_torch.ntt import matntt
 from aleo_tpu_torch.ntt import ntt as dntt
 from aleo_tpu_torch.pcs import kzg
+from aleo_tpu_torch.pcs import poly_device as pd
 from aleo_tpu_torch.pcs.srs import Srs
 from aleo_tpu_torch.program.examples import load_example
 from aleo_tpu_torch.program.interpreter import Registry
 from aleo_tpu_torch.program.parser import parse_program
 from aleo_tpu_torch.program.values import Record, Value
+from aleo_tpu_torch.reference import edwards
 from aleo_tpu_torch.reference import polynomial as rpoly
+from aleo_tpu_torch.reference import poseidon as ref_poseidon
 from aleo_tpu_torch.reference.curve import G1
 from aleo_tpu_torch.reference.msm import msm_pippenger_jac
 from aleo_tpu_torch.snark import batch as batch_mod
 from aleo_tpu_torch.snark import pipeline
 from aleo_tpu_torch.snark.serialize import proof_to_bytes
+from aleo_tpu_torch.snark.snarkvm_bytes import UniversalSrsBlob
 from aleo_tpu_torch.snark.verifier import verify
 from aleo_tpu_torch.utils import profiling as prof
 
@@ -214,7 +245,18 @@ FB_N, FB_SIZES, FB_K = 1 << 15, (1 << 12, 1 << 15), 4
 FB_ROW_POINTS = 64                      # x 20 windows = 1280 rows held against the host
 F1_N, F1_SHIFT, F1_K = 32767, 3, 4
 FB_ORACLE_C = 12                        # the host Pippenger's window at these sizes
-PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools"}
+# phase limbs_last: the ring ops at 2^16 lanes, checked on SAMPLE lanes; the
+# polynomial sizes of a transfer proof (|K| = m, |H| = n); 4 polynomials
+# opened at once; a universal SRS blob of 4096 powers
+SAMPLE = 64
+LL_LANES, LL_M, LL_N = 1 << 16, 32768, 8192
+LL_MUL, LL_VANISH, LL_OPEN, LL_SRS_POWERS = 16384, 40960, 4, 4096
+# phase record_scan: B rows of 4 record fields hashed, 32 checked; the ECDH
+# over 16384 ephemeral points, 16 checked
+RS_ROWS, RS_INPUTS, RS_HASH_CHECKED = 16384, 4, 32
+RS_POINTS, RS_ECDH_CHECKED = 16384, 16
+PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools",
+          "limbs_last", "record_scan"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
 _G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
@@ -1639,6 +1681,217 @@ def phase_fixed_base(srs, keys):
     return auto["tables_built"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the limbs-last device API and the record scan
+
+
+def _sample(rng, n, k=SAMPLE):
+    return sorted(rng.sample(range(n), k))
+
+
+def _canonical(ring, t):
+    """Every lane of an (..., L) limbs-last tensor is < p (normalize, which
+    changes any value >= p, leaves it alone)."""
+    lf_t = t.reshape(-1, ring.L).T
+    return torch.equal(lk.normalize(ring.limb_ring, lf_t), lf_t)
+
+
+def _ring_checks(ring, rng):
+    """mul, add, sub, neg, batch_inv, inv of one ring at LL_LANES lanes
+    against host integers on SAMPLE lanes; zero lanes planted for inv."""
+    p, n = ring.p, LL_LANES
+    xs = [rng.randrange(1, p) for _ in range(n)]
+    ys = [rng.randrange(p) for _ in range(n)]
+    xs[:4] = [1, p - 1, 2, p - 2]
+    ys[:4] = [0, p - 1, p - 1, 1]
+    zs = list(xs)
+    for i in (5, n // 2, n - 1):
+        zs[i] = 0
+    a, b, z = (ring.encode(v, device=DEV) for v in (xs, ys, zs))
+    idx = _sample(rng, n) + [0, 1, 2, 3, 5, n // 2, n - 1]
+    want = {
+        "mul": lambda i: xs[i] * ys[i] % p, "add": lambda i: (xs[i] + ys[i]) % p,
+        "sub": lambda i: (xs[i] - ys[i]) % p, "neg": lambda i: -xs[i] % p,
+        "batch_inv": lambda i: pow(xs[i], -1, p), "inv": lambda i: pow(zs[i], p - 2, p),
+    }
+    calls = {
+        "mul": lambda: ring.mul(a, b), "add": lambda: ring.add(a, b),
+        "sub": lambda: ring.sub(a, b), "neg": lambda: ring.neg(a),
+        "batch_inv": lambda: ring.batch_inv(a), "inv": lambda: ring.inv(z),
+    }
+    out = {}
+    for op, fn in calls.items():
+        got, s = _timed(fn)
+        assert got.shape == (n, ring.L), f"{ring.name}.{op}: shape {tuple(got.shape)}"
+        assert _canonical(ring, got), f"{ring.name}.{op}: a lane is not canonical"
+        vals = ring.decode(got[idx])
+        assert [int(v) for v in vals] == [want[op](i) for i in idx], f"{ring.name}.{op} wrong"
+        out[op + "_s"] = s
+    assert ring.decode(ring.inv(z)[[5, n // 2, n - 1]]).tolist() == [0, 0, 0]
+    return out, a, b
+
+
+def phase_limbs_last(srs):
+    """The limbs-last device API at the sizes of a transfer proof."""
+    t0 = time.time()
+    rng = random.Random(SEED + 10)
+    reset_launches()
+    res = {}
+    # -- ModRing, both rings; FR_RING.mul beside fr_lf.mul on the same values
+    res["Fq"] = _ring_checks(FQ_RING, rng)[0]
+    res["Fr"], a, b = _ring_checks(FR_RING, rng)
+    alf, blf = a.T.contiguous(), b.T.contiguous()
+    assert torch.equal(FR_RING.mul(a, b), lf.normalize(lf.mul(alf, blf)).T)
+    res["Fr"]["mul_ms"] = cuda_ms(lambda: FR_RING.mul(a, b), 10)
+    res["Fr"]["fr_lf_mul_ms"] = cuda_ms(lambda: lf.mul(alf, blf), 10)
+
+    # -- coset NTT at 2^16: round trip, one evaluation against host Horner
+    shift = params.FR_GENERATOR
+    coeffs = [rng.randrange(R) for _ in range(LL_LANES)]
+    x = FR_RING.encode(coeffs, device=DEV)
+    ev, res["coset_ntt_s"] = _timed(lambda: dntt.coset_ntt(x, shift))
+    back, res["coset_intt_s"] = _timed(lambda: dntt.coset_intt(ev, shift))
+    assert torch.equal(back, x), "coset_intt(coset_ntt(x)) != x"
+    i = rng.randrange(LL_LANES)
+    pt = shift * pow(dntt.domain(LL_LANES).w, i, R) % R
+    assert FR_RING.decode(ev[i]) == rpoly.evaluate(coeffs, pt), "coset_ntt wrong"
+
+    # -- eval_coeffs and divide_by_linear_via_domain at |K| coefficients
+    m = LL_M
+    pc = coeffs[:m]
+    pdev = x[:m]
+    z = rng.randrange(R)
+    zd = FR_RING.const(z, device=DEV)
+    y, res["eval_coeffs_s"] = _timed(lambda: pd.eval_coeffs(pdev, zd))
+    assert FR_RING.decode(y) == rpoly.evaluate(pc, z), "eval_coeffs wrong"
+    (q, y2), res["divide_by_linear_s"] = _timed(lambda: pd.divide_by_linear_via_domain(pdev, zd))
+    xr = rng.randrange(R)
+    qv = rpoly.evaluate([int(v) for v in FR_RING.decode(q)], xr)
+    assert (qv * (xr - z) + FR_RING.decode(y2) - rpoly.evaluate(pc, xr)) % R == 0, \
+        "q(x)(x - z) + y != p(x)"
+
+    # -- poly_mul of two 16384-coefficient polynomials
+    ha, hb = coeffs[: LL_MUL], coeffs[LL_MUL : 2 * LL_MUL]
+    prod, res["poly_mul_s"] = _timed(lambda: pd.poly_mul(x[:LL_MUL], x[LL_MUL : 2 * LL_MUL]))
+    assert prod.shape == (2 * LL_MUL - 1, FR_RING.L)
+    xr = rng.randrange(R)
+    assert rpoly.evaluate([int(v) for v in FR_RING.decode(prod)], xr) == \
+        rpoly.evaluate(ha, xr) * rpoly.evaluate(hb, xr) % R, "poly_mul wrong"
+
+    # -- divide_by_vanishing of 40960 coefficients by n = |H|
+    vc = [rng.randrange(R) for _ in range(LL_VANISH)]
+    (vq, vr), res["divide_by_vanishing_s"] = _timed(
+        lambda: pd.divide_by_vanishing(FR_RING.encode(vc, device=DEV), LL_N))
+    xr = rng.randrange(R)
+    lhs = (rpoly.evaluate([int(v) for v in FR_RING.decode(vq)], xr) * (pow(xr, LL_N, R) - 1)
+           + rpoly.evaluate([int(v) for v in FR_RING.decode(vr)], xr)) % R
+    assert lhs == rpoly.evaluate(vc, xr), "q(x) v_H(x) + r(x) != a(x)"
+
+    # -- commits of |K| coefficients: device combine, host combine, commit_lf
+    (cm_dev, res["commit_s"]) = _timed(lambda: kzg.commit(srs, pdev))
+    cm_host, res["commit_host_s"] = _timed(lambda: kzg.commit_host(srs, pdev))
+    cm_lf, res["commit_lf_s"] = _timed(lambda: kzg.commit_lf(srs, pdev.T.contiguous()))
+    assert g1mod.decode_points(cm_dev)[0] == cm_host == cm_lf, "limbs-last commits disagree"
+
+    # -- open_at and batch_open_at over LL_OPEN polynomials of |H| coefficients
+    polys_h = [[rng.randrange(R) for _ in range(LL_N)] for _ in range(LL_OPEN)]
+    polys = [FR_RING.encode(v, device=DEV) for v in polys_h]
+    (w, yo), res["open_at_s"] = _timed(lambda: kzg.open_at(srs, polys[0], zd))
+    yv = FR_RING.decode(yo)
+    cm0 = kzg.commit_host(srs, polys[0])
+    assert yv == rpoly.evaluate(polys_h[0], z)
+    assert kzg.verify(srs, cm0, z, yv, w), "open_at does not verify"
+    assert not kzg.verify(srs, cm0, z, (yv + 1) % R, w), "tampered y verifies"
+    gamma = rng.randrange(R)
+    (wb, ys), res["batch_open_at_s"] = _timed(
+        lambda: kzg.batch_open_at(srs, polys, zd, FR_RING.const(gamma, device=DEV)))
+    ys = [FR_RING.decode(v) for v in ys]
+    cms = [cm0] + [kzg.commit_host(srs, p_) for p_ in polys[1:]]
+    assert kzg.batch_verify(srs, cms, z, ys, gamma, wb), "batch_open_at does not verify"
+    assert not kzg.batch_verify(srs, cms, z, [(ys[0] + 1) % R] + ys[1:], gamma, wb), \
+        "tampered batch verifies"
+
+    # -- the universal SRS blob: bytes -> blob -> to_srs() with no device
+    t1 = time.time()
+    blob = UniversalSrsBlob(LL_SRS_POWERS - 1, srs.host_affine()[:LL_SRS_POWERS],
+                            srs.g2_gen, srs.g2_tau)
+    data = blob.to_bytes()
+    back = UniversalSrsBlob.from_bytes(data)
+    imported = back.to_srs()
+    assert imported.device.type == DEV.type, f"to_srs() landed on {imported.device}"
+    for k in "xyz":
+        assert torch.equal(getattr(imported.powers, k),
+                           getattr(srs.powers, k)[:LL_SRS_POWERS]), f"imported powers.{k}"
+    res["srs_blob"] = {"powers": LL_SRS_POWERS, "bytes": len(data), "seconds": time.time() - t1}
+    torch.cuda.synchronize()
+    launches = _nonzero(all_launches())
+    for kname in ("fmat_reduce", "fq_prepare", "fq_apply", "g1_double", "g1_add"):
+        assert launches.get(kname, 0) > 0, f"{kname} was never launched by limbs_last"
+    say({"phase": "limbs_last", "lanes": LL_LANES, "m": LL_M, "n": LL_N, **res,
+         "launches": launches, "seconds": round(time.time() - t0, 3)})
+    return launches
+
+
+def _ladder_step_launches(xs, ys):
+    """CUDA kernel launches of one ladder step (a doubling, an addition and
+    the select) at the phase's width, from torch.profiler; None where the
+    profiler shows no device rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        ed.scalar_mul_batch([1], xs, ys)
+        torch.cuda.synchronize()
+    rows = [ev for ev in p.key_averages()
+            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return sum(ev.count for ev in rows) or None
+
+
+def phase_record_scan():
+    """A wallet's record scan at full width: Poseidon hashing of records and
+    the view-key ECDH over a block of ciphertexts."""
+    t0 = time.time()
+    rng = random.Random(SEED + 11)
+    reset_launches()
+    res = {}
+    # -- Poseidon at rates 2, 4, 8: hash_batch over B rows of 4, permute
+    for rate in (2, 4, 8):
+        rows = [[rng.randrange(R) for _ in range(RS_INPUTS)] for _ in range(RS_ROWS)]
+        enc = FR_RING.encode([v for r in rows for v in r], device=DEV).reshape(
+            RS_ROWS, RS_INPUTS, FR_RING.L)
+        out, hs = _timed(lambda: poseidon.hash_batch(rate, enc))
+        idx = _sample(rng, RS_ROWS, RS_HASH_CHECKED)
+        assert FR_RING.decode(out[idx]).tolist() == [ref_poseidon.hash_psd(rate, rows[i]) for i in idx], \
+            f"hash_batch at rate {rate} wrong"
+        states = [[rng.randrange(R) for _ in range(rate + 1)] for _ in range(RS_ROWS)]
+        st = FR_RING.encode([v for s in states for v in s], device=DEV).reshape(
+            RS_ROWS, rate + 1, FR_RING.L)
+        perm, ps = _timed(lambda: poseidon.permute(st, rate))
+        pp = ref_poseidon.PoseidonParams.standard(rate)
+        for i in idx:
+            assert FR_RING.decode(perm[i]).tolist() == ref_poseidon.permute(states[i], pp), \
+                f"permute at rate {rate} wrong in row {i}"
+        res[f"rate{rate}"] = {"hash_batch_s": hs, "permute_s": ps}
+
+    # -- the view-key ECDH over RS_POINTS ephemeral points
+    view = rng.randrange(1 << 250, params.EDWARDS_ORDER)
+    P, Q = edwards.rand(rng), edwards.rand(rng)
+    pts = [P]
+    for _ in range(RS_POINTS - 1):
+        pts.append(edwards.add(pts[-1], Q))
+    xs, ys = ed.encode_points(pts, device=DEV)
+    step_launches = _ladder_step_launches(xs, ys)
+    got, es = _timed(lambda: ed.shared_secrets(view, pts))
+    idx = _sample(rng, RS_POINTS, RS_ECDH_CHECKED)
+    assert [got[i] for i in idx] == [edwards.mul(view, pts[i]) for i in idx], "shared_secrets wrong"
+    res["ecdh"] = {"points": RS_POINTS, "view_bits": view.bit_length(), "seconds": es,
+                   "ladder_steps": view.bit_length(), "batch_inv_readbacks": 4 * view.bit_length(),
+                   "launches_per_step": step_launches}
+    torch.cuda.synchronize()
+    say({"phase": "record_scan", "rows": RS_ROWS, **res,
+         "launches": _nonzero(all_launches()), "seconds": round(time.time() - t0, 3)})
+
+
 def _load_tool(name):
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(name, os.path.join(here, "tools", name + ".py"))
@@ -1671,11 +1924,11 @@ def main(argv):
     card = phase_device()
     kres = phase_kernels() if "kernels" in want else None
     srs = None
-    if want & {"msm", "micro", "transfer", "batch", "fixed_base"}:
+    if want & {"msm", "micro", "transfer", "batch", "fixed_base", "limbs_last"}:
         t0 = time.time()
         # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
         # (micro needs fewer and takes the same one)
-        deg = 32769 if want & {"msm", "transfer", "batch", "fixed_base"} else 8193
+        deg = 32769 if want & {"msm", "transfer", "batch", "fixed_base", "limbs_last"} else 8193
         srs = Srs.generate(deg, device=DEV)
         say({"phase": "srs", "powers": deg + 1, "seconds": round(time.time() - t0, 3)})
     to_affine_launches = None
@@ -1691,13 +1944,17 @@ def main(argv):
     batch_launches = phase_batch(srs, keys, single_s) if "batch" in want else None
     fb_launches = phase_fixed_base(srs, keys) if "fixed_base" in want else None
     tool_launches = phase_tools() if "tools" in want else None
+    ll_launches = phase_limbs_last(srs) if "limbs_last" in want else None
+    if "record_scan" in want:
+        phase_record_scan()
     if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches,
-                    fb_launches):
+                    fb_launches, ll_launches):
         # `launches` is a kernel's count on the main path that runs it: the
         # transfer proof (K1-K12 and the inversion tree), to_affine (fq_mul),
         # the two scripts (the product kernels); `launches_batch` its count
         # in the k = 4 batch; `launches_fixed_base` in the transfer proof
-        # with the fixed-base MSM on ("auto") that builds its tables
+        # with the fixed-base MSM on ("auto") that builds its tables;
+        # `launches_limbs_last` in the limbs_last phase
         on_path = {**launches, "fq_mul": to_affine_launches["fq_mul"],
                    **{k: tool_launches[k] for k in PROTO_KERNELS}}
         say({"kernels": [
@@ -1705,6 +1962,7 @@ def main(argv):
              "source": KERNELS[name][0], "replaces": KERNELS[name][1],
              "launches": on_path[name], "launches_batch": batch_launches[name],
              "launches_fixed_base": fb_launches[name],
+             "launches_limbs_last": ll_launches.get(name, 0),
              "max_abs_err": r["max_abs_err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None}

@@ -135,3 +135,27 @@ def test_ops_accept_lazy_results_of_each_other():
     a = tlf.encode(xs, device="cpu")
     v = tlf.sub(tlf.mul(tlf.add(a, a), tlf.neg(a)), tlf.sq(a))
     assert tlf.decode(v) == [(-2 * x * x - x * x) % R for x in xs]
+
+
+def test_fr_lf_inv_and_batch_inv_give_zero_on_zero_lanes_as_jax():
+    """inv(0) = 0 (the reference's Fermat chain), and a row of batch_inv
+    with a zero in it is all zeros, as in the reference."""
+    ja, ta = _both([0, 5, R - 1])
+    _same(jlf.inv(ja), tlf.inv(ta))
+    assert tlf.decode(tlf.inv(ta)) == [0, pow(5, -1, R), R - 1]
+    jb, tb = _both([3, 0, 5])
+    _same(jlf.batch_inv(jb), tlf.batch_inv(tb))
+    assert tlf.decode(tlf.batch_inv(tb)) == [0, 0, 0]
+    # per batch row: only the row that holds the zero is zeroed
+    rows = [[3, 0, 5], [2, 7, 11]]
+    tk = torch.stack([tlf.encode(r, device="cpu") for r in rows], dim=1)
+    out = tlf.batch_inv(tk)
+    assert tlf.decode(out[:, 0]) == [0, 0, 0]
+    assert tlf.decode(out[:, 1]) == [pow(x, -1, R) for x in rows[1]]
+
+
+def test_fr_lf_layout_converters_match_jax():
+    ja, ta = _both([1, 2, 3])
+    assert np.array_equal(np.asarray(jlf.to_ll(ja)).astype(np.int64),
+                          tlf.to_ll(ta).numpy().astype(np.int64))
+    assert torch.equal(tlf.from_ll(tlf.to_ll(ta)), ta)

@@ -61,13 +61,16 @@ def test_importing_the_port_does_not_load_jax():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     import torch
 
-    from aleo_tpu_torch.curves import g1, g1_affine, g1_fused
+    from aleo_tpu_torch.curves import edwards_device, g1, g1_affine, g1_fused
     from aleo_tpu_torch.fields import fr_lf
+    from aleo_tpu_torch.fields.modring import FQ_RING, FR_RING
     from aleo_tpu_torch.msm import msm
     from aleo_tpu_torch.pcs.srs import Srs
     from aleo_tpu_torch.program.interpreter import Registry
+    from aleo_tpu_torch.reference import edwards
     from aleo_tpu_torch.snark import batch, indexer, pipeline
     from aleo_tpu_torch.snark.r1cs import ConstraintSystem
+    from aleo_tpu_torch.snark.snarkvm_bytes import UniversalSrsBlob
 
     def tool(name):
         # the stand-alone scripts around fields/proto_mul.py: its wrappers
@@ -95,6 +98,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: batch._const_b([1, 2]),
         lambda: tool("torch_proto_mul").main(["--log2n", "6"]),
         lambda: tool("torch_microbench_fr_mul").main(["6"]),
+        lambda: FR_RING.encode([1]),
+        lambda: FQ_RING.const(3),
+        lambda: edwards_device.shared_secrets(5, [edwards.generator()]),
+        lambda: UniversalSrsBlob(0, [None], None, None).to_srs(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -5,19 +5,20 @@
 
 Counterpart of `tools/microbench_fr_mul.py` for the PyTorch/CUDA port.
 Paths:
+  a) limbs-last product of `fields.modring.FR_RING` (n, L): the same limb
+     arithmetic moved to limbs-first and back, canonical out
   b) limbs-first eager product (`fields.fr_lf.mul`: plain PyTorch on the
      limb arithmetic of `fields.limb_kernels`), (L, n), what the prover runs
   c) limbs-first fused product, one CUDA kernel (`fields.proto_mul.fr_mul`,
      `csrc/proto_mul.cu`)
 
-Also times a butterfly-stage shape for (b): twiddle gather + product +
-add/sub + select. The original's path (a), the limbs-last einsum product of
-`fields/modring.py`, and its limbs-last butterfly stage are left out:
-`modring` is not ported.
+Also times a butterfly-stage shape for (b) and for (a): twiddle gather +
+product + add/sub + select.
 
 Before any timing the kernel is held against its plain version on the raw
 lazy limbs of every lane, and against the eager `fr_lf.mul` after
-`normalize`. The device is CUDA and the script raises without one.
+`normalize`; the product of (a) against (b) on every lane. The device is
+CUDA and the script raises without one.
 `--device cpu` runs the plain version in the kernel's place (a check of the
 script, no measurement of a card): its times are host times and are
 labelled so. Inputs come from numpy's generator with seed 0, as in the
@@ -39,6 +40,7 @@ from aleo_tpu_torch import params
 from aleo_tpu_torch.fields import fr_lf as lf
 from aleo_tpu_torch.fields import limbs
 from aleo_tpu_torch.fields import proto_mul as pm
+from aleo_tpu_torch.fields.modring import FR_RING as F
 
 R = params.R
 
@@ -52,9 +54,10 @@ def card_line(device) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bench(fn, *args, iters=20, label="", device=None):
+def bench(fn, *args, n, iters=20, label="", device=None):
     """One warm-up call, then `iters` calls: CUDA events on a card, the host
-    clock on the CPU. Prints ms per call and million products per second."""
+    clock on the CPU. Prints ms per call and million products per second
+    (n products a call)."""
     out = fn(*args)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -70,7 +73,6 @@ def bench(fn, *args, iters=20, label="", device=None):
         for _ in range(iters):
             out = fn(*args)
         dt = (time.perf_counter() - t0) / iters
-    n = args[0].shape[1]
     print(f"{label:32s} {dt * 1e3:8.3f} ms  {n / dt / 1e6:10.2f} Mmul/s  [{device.type}]",
           flush=True)
     return out
@@ -101,11 +103,16 @@ def main(argv=None):
     assert torch.equal(lf.normalize(out_k), want), "fr_mul != fr_lf.mul"
     assert lf.decode(out_k[:, :8]) == [x * y % R for x, y in zip(a_int[:8], b_int[:8])]
     print("fused == eager: ok", flush=True)
+    a_ll = F.encode(a_int, device=device)              # (n, L)
+    b_ll = F.encode(b_int, device=device)
+    assert torch.equal(F.mul(a_ll, b_ll), want.T), "FR_RING.mul != fr_lf.mul"
+    print("limbs-last == eager: ok", flush=True)
 
     it = args.iters
-    bench(lf.mul, alf, blf, iters=it, label="limbs-first eager", device=device)
+    bench(F.mul, a_ll, b_ll, n=n, iters=it, label="limbs-last ModRing", device=device)
+    bench(lf.mul, alf, blf, n=n, iters=it, label="limbs-first eager", device=device)
     fused = "limbs-first fused kernel" if device.type == "cuda" else "fused path, plain version"
-    bench(pm.fr_mul, alf, blf, iters=it, label=fused, device=device)
+    bench(pm.fr_mul, alf, blf, n=n, iters=it, label=fused, device=device)
 
     # butterfly-stage shape: gather twiddle + mul + add/sub/select, eager
     wtab_int, acc = [], 1
@@ -125,7 +132,22 @@ def main(argv=None):
         lower = (iota & span) == 0
         return lf.select(lower, lf.add(x, m_p), lf.sub(x_p, m))
 
-    bench(stage_lf, alf, iters=it, label="bfly stage limbs-first eager", device=device)
+    bench(stage_lf, alf, n=n, iters=it, label="bfly stage limbs-first eager", device=device)
+
+    wtab_ll = wtab.T.contiguous()
+
+    def stage_ll(x):
+        tw = wtab_ll[(iota * 7) & (n - 1)]
+        m = F.mul(tw, x)
+        partner_idx = iota ^ span
+        m_p = m[partner_idx]
+        x_p = x[partner_idx]
+        lower = (iota & span) == 0
+        return F.select(lower, F.add(x, m_p), F.sub(x_p, m))
+
+    assert torch.equal(stage_ll(a_ll), lf.normalize(stage_lf(alf)).T), \
+        "limbs-last stage != limbs-first stage"
+    bench(stage_ll, a_ll, n=n, iters=it, label="bfly stage limbs-last ModRing", device=device)
     return 0
 
 
