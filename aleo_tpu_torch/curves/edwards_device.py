@@ -25,6 +25,7 @@ import torch
 from .. import params
 from ..fields import fr_lf as lf
 from ..fields import limbs
+from ..reference import edwards
 
 D = params.EDWARDS_D
 
@@ -86,8 +87,27 @@ def shared_secrets(view_scalar: int, eph_points, device=None) -> list:
 
     The device path for RecordCiphertext.is_owner/decrypt over many records
     (the reverse-scan hot loop, blocking.rs:261-318).
+
+    Only points on the curve go into the ladder: there the law is complete,
+    so no denominator of `_unified_add` is zero. A point off the curve (a
+    ciphertext's `eph` arrives unchecked) can make one zero, and
+    `fr_lf.batch_inv` would then zero the whole row, every lane of the
+    batch. Each such lane gets the host `reference.edwards.mul` instead, the
+    value the per-record host scan gives it, so lane for lane the result
+    equals the host path.
     """
-    nbits = max(1, view_scalar.bit_length())
-    bits = [(view_scalar >> (nbits - 1 - i)) & 1 for i in range(nbits)]
-    xs, ys = encode_points(eph_points, device=device)
-    return decode_points(scalar_mul_batch(bits, xs, ys))
+    device = limbs.resolve_device(device)
+    out, on = [], []
+    for i, p in enumerate(eph_points):
+        if edwards.is_on_curve(p):
+            on.append(i)
+            out.append(None)
+        else:
+            out.append(edwards.mul(view_scalar, p))
+    if on:
+        nbits = max(1, view_scalar.bit_length())
+        bits = [(view_scalar >> (nbits - 1 - i)) & 1 for i in range(nbits)]
+        xs, ys = encode_points([eph_points[i] for i in on], device=device)
+        for i, pt in zip(on, decode_points(scalar_mul_batch(bits, xs, ys))):
+            out[i] = pt
+    return out

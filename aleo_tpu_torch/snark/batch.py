@@ -28,8 +28,13 @@ of z for every proof, then of z_A, z_B, z_C, then each proof's 2n + 2
 coefficients of s), so with the same index, constraint systems and seeded
 `rng` the k proofs are byte for byte the reference's.
 
-The reference's `mesh` argument (the proof axis sharded over devices) is not
-ported: this module runs on the one device the SRS lies on.
+With a `mesh` (`parallel.mesh.make_mesh`) the proof axis is split over its
+`dp` axis: rank r proves proofs [r*k/dp, (r+1)*k/dp) through the same
+batched stages, on the device its index's SRS lies on, and the proofs are
+gathered over `dp` in rank order, so every rank returns all k. Each rank
+draws the whole `rng` sequence and keeps its own slice, so seeded proofs are
+those of the batch on one device, byte for byte. The `field` axis is not
+used here, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import random as _random
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 from .. import params
 from ..fields import fr_lf as lf
@@ -207,17 +213,46 @@ def _evals_of(block, names, z_b):
     return {nm: [flat[p * j + i] for p in range(k)] for i, nm in enumerate(names)}
 
 
-def prove_batch(index: Index, cs_list: List[ConstraintSystem], rng=None) -> List[Proof]:
+def _draw_masks(rng, k: int, n: int, names) -> dict:
+    """Every draw of `rng` for k proofs, in the reference's order: the two
+    masks of z for each proof, then those of z_A, z_B, z_C (`names`), then
+    each proof's 2n + 2 coefficients of s."""
+    pair = lambda: [(rng.randrange(R), rng.randrange(R)) for _ in range(k)]
+    draws = {"z": pair()}
+    for name in names:
+        draws[name] = pair()
+    draws["s"] = [[rng.randrange(R) for _ in range(2 * n + 2)] for _ in range(k)]
+    return draws
+
+
+def prove_batch(index: Index, cs_list: List[ConstraintSystem], rng=None,
+                mesh=None) -> List[Proof]:
     """k proofs under one index; returns one Proof per constraint system, on
     the device the index's SRS lies on. `rng` seeds the hiding masks of all k
-    proofs (default: the system's entropy)."""
+    proofs (default: the system's entropy). `mesh` splits the k proofs over
+    its `dp` axis (k a multiple of it); every rank returns all k."""
     k = len(cs_list)
     assert k >= 1
+    if rng is None:
+        rng = _random.SystemRandom()
+    draws = _draw_masks(rng, k, index.n, [mi.name for mi in index.matrices])
+    if mesh is None:
+        return _prove_batch(index, cs_list, draws)
+    dp, rank = mesh["dp"].size(), mesh.get_local_rank("dp")
+    assert k % dp == 0, "k must divide over the dp axis"
+    mine = slice(rank * k // dp, (rank + 1) * k // dp)
+    part = _prove_batch(index, cs_list[mine], {key: v[mine] for key, v in draws.items()})
+    parts = [None] * dp
+    dist.all_gather_object(parts, part, group=mesh.get_group("dp"))
+    return [proof for p in parts for proof in p]
+
+
+def _prove_batch(index: Index, cs_list: List[ConstraintSystem], draws: dict) -> List[Proof]:
+    """The k proofs of `cs_list` with the masks of `draws`."""
+    k = len(cs_list)
     n, m, ell = index.n, index.m, index.ell
     srs = index.srs
     dev = srs.device
-    if rng is None:
-        rng = _random.SystemRandom()
     _s = prof.stage
     const = lambda vals, width=1: _const_b(vals, width, device=dev)
 
@@ -229,13 +264,13 @@ def prove_batch(index: Index, cs_list: List[ConstraintSystem], rng=None) -> List
         spmv_b = {
             mi.name: _lanes(spmv_lf(mi.by_row, _lanes(z_evals))) for mi in index.matrices
         }
-        mask = lambda pb: torch.stack(
-            [_mask_vh(pb[p], n, rng.randrange(R), rng.randrange(R)) for p in range(k)]
+        mask = lambda pb, pairs: torch.stack(
+            [_mask_vh(pb[p], n, *pairs[p]) for p in range(k)]
         )
-        z_poly = mask(_intt_b(z_evals))                 # (k, L, n+2)
-        zm_polys = {key: mask(_intt_b(v)) for key, v in spmv_b.items()}
+        z_poly = mask(_intt_b(z_evals), draws["z"])     # (k, L, n+2)
+        zm_polys = {key: mask(_intt_b(v), draws[key]) for key, v in spmv_b.items()}
 
-        s_coeff_list = [[rng.randrange(R) for _ in range(2 * n + 2)] for _ in range(k)]
+        s_coeff_list = draws["s"]
         sigma_s = [n * (sc[0] + sc[n] + sc[2 * n]) % R for sc in s_coeff_list]
         s_mask = torch.stack([lf.encode(sc, device=dev) for sc in s_coeff_list])
 

@@ -7,6 +7,9 @@
   * `counter(name, n)`: accumulate a throughput numerator (points,
     constraints).
   * `report()` / `reset()`: snapshot and clear.
+  * `trace(log_dir)`: a `torch.profiler` trace of the block (Chrome /
+    TensorBoard JSON) written into `log_dir` or ALEO_TORCH_TRACE_DIR; does
+    nothing when neither is set.
 
 Enabled when ALEO_TORCH_PROFILE=1 or after `enable()`; near-zero overhead
 when disabled (the context manager short-circuits, and nothing
@@ -84,3 +87,20 @@ def reset() -> None:
         _times.clear()
         _calls.clear()
         _counts.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Profiler trace of the block, every activity this build of torch can
+    record (the CPU's, and the card's where there is one), written on exit
+    as `<worker>.<time>.pt.trace.json` into `log_dir` or
+    ALEO_TORCH_TRACE_DIR."""
+    log_dir = log_dir or os.environ.get("ALEO_TORCH_TRACE_DIR")
+    if not log_dir:
+        yield
+        return
+    from torch import profiler
+
+    with profiler.profile(activities=profiler.supported_activities(),
+                          on_trace_ready=profiler.tensorboard_trace_handler(log_dir)):
+        yield

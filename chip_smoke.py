@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # every phase, as below
     python3 chip_smoke.py kernels    # only the named phases (device always runs)
+    python3 chip_smoke.py mesh sdk   # the multi-device layer and the host SDK
+    python3 chip_smoke.py scan_widths  # opt-in: the scan's two ECDH paths by width
 
 Phases, each printing one JSON line with its seconds:
 
@@ -128,9 +130,38 @@ Phases, each printing one JSON line with its seconds:
             and 8 over 16384 rows of 4 inputs and permute at each rate, 32
             rows against the host oracle; shared_secrets with a full-width
             view scalar over 16384 ephemeral points (running sums of two
-            random points), 16 lanes against the host ladder; the ladder's
+            random points) with one point off the curve planted among them,
+            built so that the ladder's second step meets a zero denominator
+            (F5; a 250-bit view scalar with its top two bits set), 16 sampled
+            lanes and the planted one against the host ladder; the ladder's
             steps, its batch_inv readbacks, and the CUDA launches of one
             ladder step from torch.profiler
+  mesh      parallel/mesh.py in a world of one under NCCL, mesh (1, 1) (one
+            card: the butterfly runs no step and the all-to-all moves one
+            block; no exchange between cards is verified): sharded_msm over
+            32768 SRS powers in both MSM modes against msm.msm (affine
+            points), sharded_ntt at 2^17 = 256 x 512 with MatNTT local
+            transforms against ntt.ntt (limbs after normalize), prove_batch
+            of four transfers over the dp axis against the same seeded
+            batch without a mesh (equal bytes; proof 0 verified),
+            graft_entry.entry()'s step against the host (h and the MSM),
+            graft_entry.dryrun_multichip(1) (its own host checks); the
+            launches of each sharded call (counts set to 0 before it), the
+            seconds of a first and a second call of each, in turns with the
+            unsharded one
+  sdk       the host SDK: a Ledger(verify_proofs=True), ProgramManager
+            proving token.aleo/transfer (its keys synthesized by the
+            pipeline over the SRS cached by the srs step), accepted by the
+            ledger, a tampered copy refused; a wallet scan through
+            LocalAPIClient.get_unspent_records over 64 genesis ciphertexts,
+            one device ladder, equal to the per-record host scan
+  scan_widths  opt-in (only when named; a partial run): the record scan's
+            two ECDH paths at 64, 256, 1024 and 4096 ciphertexts, one device
+            ladder (shared_secrets, what api_client._batch_shared calls from
+            BATCH_ECDH_MIN on) against one host edwards.mul a record (what
+            the scan does below it), on the same points and view scalar,
+            every lane equal; the rest of a record's probe is the same on
+            both paths, so where these times cross is where the batch pays
 
 It fails (non-zero exit, no result line) without CUDA, if the build fails,
 or if any phase fails. The last line of its output is
@@ -148,9 +179,12 @@ import importlib.util
 import json
 import multiprocessing
 import os
+import copy
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -160,7 +194,7 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device: this script runs on the GPU only\n")
     sys.exit(1)
 
-from aleo_tpu_torch import _build, config, params
+from aleo_tpu_torch import _build, config, graft_entry, params
 from aleo_tpu_torch.curves import edwards_device as ed
 from aleo_tpu_torch.curves import g1 as g1mod
 from aleo_tpu_torch.curves import g1_affine as ga
@@ -177,10 +211,11 @@ from aleo_tpu_torch.msm import fixed_base
 from aleo_tpu_torch.msm import msm as msm_mod
 from aleo_tpu_torch.ntt import matntt
 from aleo_tpu_torch.ntt import ntt as dntt
+from aleo_tpu_torch.parallel import mesh as pmesh
 from aleo_tpu_torch.pcs import kzg
 from aleo_tpu_torch.pcs import poly_device as pd
 from aleo_tpu_torch.pcs.srs import Srs
-from aleo_tpu_torch.program.examples import load_example
+from aleo_tpu_torch.program.examples import load_example, load_program
 from aleo_tpu_torch.program.interpreter import Registry
 from aleo_tpu_torch.program.parser import parse_program
 from aleo_tpu_torch.program.values import Record, Value
@@ -188,11 +223,17 @@ from aleo_tpu_torch.reference import edwards
 from aleo_tpu_torch.reference import polynomial as rpoly
 from aleo_tpu_torch.reference import poseidon as ref_poseidon
 from aleo_tpu_torch.reference.curve import G1
+from aleo_tpu_torch.reference.field import FR
 from aleo_tpu_torch.reference.msm import msm_pippenger_jac
 from aleo_tpu_torch.snark import batch as batch_mod
 from aleo_tpu_torch.snark import pipeline
 from aleo_tpu_torch.snark.serialize import proof_to_bytes
 from aleo_tpu_torch.snark.snarkvm_bytes import UniversalSrsBlob
+from aleo_tpu_torch.sdk import api_client
+from aleo_tpu_torch.sdk.account import PrivateKey
+from aleo_tpu_torch.sdk.api_client import ApiError, LocalAPIClient
+from aleo_tpu_torch.sdk.ledger import Ledger
+from aleo_tpu_torch.sdk.program_manager import ProgramManager
 from aleo_tpu_torch.snark.verifier import verify
 from aleo_tpu_torch.utils import profiling as prof
 
@@ -255,8 +296,15 @@ LL_MUL, LL_VANISH, LL_OPEN, LL_SRS_POWERS = 16384, 40960, 4, 4096
 # over 16384 ephemeral points, 16 checked
 RS_ROWS, RS_INPUTS, RS_HASH_CHECKED = 16384, 4, 32
 RS_POINTS, RS_ECDH_CHECKED = 16384, 16
+# phase mesh: the sharded MSM over a transfer proof's m points, the sharded
+# NTT at 2^17 as 256 x 512; phase sdk: the genesis records of the wallet scan
+MESH_POINTS, MESH_NTT = 32768, (256, 512)
+SDK_RECORDS = 64
+# opt-in phase scan_widths: the widths of the scan's ECDH
+SCAN_WIDTHS = (64, 256, 1024, 4096)
+OPT_IN_PHASES = {"scan_widths"}
 PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools",
-          "limbs_last", "record_scan"}
+          "limbs_last", "record_scan", "mesh", "sdk"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
 _G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
@@ -283,6 +331,10 @@ KERNELS = {         # name -> (source, the TPU kernel it replaces)
 AFFINE_KERNELS = ("fq_prepare", "fq_inv_up", "fq_fermat", "fq_inv_down", "fq_apply")
 PROJECTIVE_KERNELS = ("g1_double", "g1_add", "g1_add_sel", "g1_add_sel_proj")
 PROTO_KERNELS = ("fq_mul_canon", "fq_mul_chain12", "fr_mul")
+# the kernels of the mesh phase's paths (both MSM modes, MatNTT) and of the
+# sdk phase's (a batch-affine proof and its keys)
+MESH_KERNELS = AFFINE_KERNELS + PROJECTIVE_KERNELS + ("g1_normalize", "fmat_reduce")
+SDK_KERNELS = AFFINE_KERNELS + ("g1_normalize", "fmat_reduce")
 
 MICRO = """
 program micro.aleo;
@@ -1847,6 +1899,26 @@ def _ladder_step_launches(xs, ys):
     return sum(ev.count for ev in rows) or None
 
 
+def _f5_point(rng):
+    """An off-curve point P with 1 + d*t = 0 in add(2P, P): for a random u,
+    s = (d^2 u^4 - 1) / (2 d u^2), and x^2, y^2 the roots of z^2 - s z + u^2
+    with x y = u."""
+    D = params.EDWARDS_D
+    while True:
+        u = rng.randrange(1, R)
+        s = (D * D * pow(u, 4, R) - 1) * pow(2 * D * u * u, -1, R) % R
+        disc = (s * s - 4 * u * u) % R
+        if not FR.is_square(disc):
+            continue
+        x2 = (s + FR.sqrt(disc)) * pow(2, -1, R) % R
+        if x2 == 0 or not FR.is_square(x2):
+            continue
+        x = FR.sqrt(x2)
+        P = (x, u * pow(x, -1, R) % R)
+        assert not edwards.is_on_curve(P)
+        return P
+
+
 def phase_record_scan():
     """A wallet's record scan at full width: Poseidon hashing of records and
     the view-key ECDH over a block of ciphertexts."""
@@ -1873,23 +1945,241 @@ def phase_record_scan():
                 f"permute at rate {rate} wrong in row {i}"
         res[f"rate{rate}"] = {"hash_batch_s": hs, "permute_s": ps}
 
-    # -- the view-key ECDH over RS_POINTS ephemeral points
-    view = rng.randrange(1 << 250, params.EDWARDS_ORDER)
+    # -- the view-key ECDH over RS_POINTS ephemeral points, one of them off
+    # the curve and built so that the ladder's second step meets a zero
+    # denominator (F5): a 250-bit view scalar (the group order is below
+    # 2^250 + 2^249, so no 251-bit one has its second-highest bit set) with
+    # its top two bits set, even, so the host's ladder (low bit first) does
+    # not meet it
+    view = rng.randrange(3 << 248, 1 << 250) & ~1
     P, Q = edwards.rand(rng), edwards.rand(rng)
     pts = [P]
     for _ in range(RS_POINTS - 1):
         pts.append(edwards.add(pts[-1], Q))
+    planted = rng.randrange(RS_POINTS)
+    pts[planted] = _f5_point(rng)
     xs, ys = ed.encode_points(pts, device=DEV)
     step_launches = _ladder_step_launches(xs, ys)
     got, es = _timed(lambda: ed.shared_secrets(view, pts))
-    idx = _sample(rng, RS_POINTS, RS_ECDH_CHECKED)
+    idx = sorted(set(_sample(rng, RS_POINTS, RS_ECDH_CHECKED)) | {planted})
     assert [got[i] for i in idx] == [edwards.mul(view, pts[i]) for i in idx], "shared_secrets wrong"
-    res["ecdh"] = {"points": RS_POINTS, "view_bits": view.bit_length(), "seconds": es,
+    res["ecdh"] = {"points": RS_POINTS, "off_curve_lane": planted, "lanes_checked": len(idx),
+                   "view_bits": view.bit_length(), "seconds": es,
                    "ladder_steps": view.bit_length(), "batch_inv_readbacks": 4 * view.bit_length(),
                    "launches_per_step": step_launches}
     torch.cuda.synchronize()
     say({"phase": "record_scan", "rows": RS_ROWS, **res,
          "launches": _nonzero(all_launches()), "seconds": round(time.time() - t0, 3)})
+
+
+def _launches_of(fn):
+    """fn() with every count set to 0 just before and read just after ->
+    (result, seconds, launches)."""
+    reset_launches()
+    out, seconds = _timed(fn)
+    return out, seconds, all_launches()
+
+
+def _add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_mesh(srs, keys):
+    """parallel/mesh.py, prove_batch(mesh=...) and graft_entry at full width
+    in a world of one under NCCL, mesh (1, 1): one card, so the butterfly
+    runs no step and the all-to-all moves one block; no exchange between
+    cards is verified here (the CPU tests run them over gloo ranks). Each
+    sharded call runs with the counts set to 0 just before and read just
+    after; the unsharded calls it is held against are not counted."""
+    t0 = time.time()
+    rng = random.Random(SEED + 30)
+    path, checks = {}, {}
+
+    def check(name, sharded, unsharded=None):
+        """sharded() counted, then unsharded(), then each once more: the
+        seconds of the first and the second calls, in turns."""
+        out, s1, launches = _launches_of(sharded)
+        _add_launches(path, launches)
+        checks[name] = {"seconds": [s1], "launches": _nonzero(launches)}
+        if unsharded is None:
+            return out, None
+        want, u1 = _timed(unsharded)
+        s2, u2 = _timed(sharded)[1], _timed(unsharded)[1]
+        checks[name].update(seconds=[s1, s2], unsharded_seconds=[u1, u2])
+        return out, want
+
+    init_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    pmesh.init_distributed(f"file://{init_dir}/init", 1, 0, timeout=300)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = pmesh.make_mesh(1, 1)
+        # (a) the MSM over a transfer proof's m points, both modes
+        pts = g1mod.G1Points(*(a[:MESH_POINTS] for a in srs.powers))
+        raw = limbs.to_tensor(limbs.ints_to_limbs(
+            [rng.randrange(R) for _ in range(MESH_POINTS)], params.FR_LIMBS), DEV)
+        assert config.MSM_AFFINE_MODE == "1"
+        try:
+            for mode, name in (("1", "affine"), ("0", "projective")):
+                config.MSM_AFFINE_MODE = mode
+                got, want = check(f"sharded_msm_{name}",
+                                  lambda: pmesh.sharded_msm(mesh, raw, pts),
+                                  lambda: msm_mod.msm(raw, pts, device=DEV))
+                assert g1mod.decode_points(got) == g1mod.decode_points(want), \
+                    f"sharded_msm ({name}) disagrees with msm.msm"
+        finally:
+            config.MSM_AFFINE_MODE = "1"
+        # (b) the 4-step NTT at 2^17, local transforms on MatNTT
+        n1, n2 = MESH_NTT
+        x = FR_RING.encode([rng.randrange(R) for _ in range(n1 * n2)], device=DEV)
+        got, want = check("sharded_ntt", lambda: pmesh.sharded_ntt(mesh, x, n1, n2, impl="matntt"),
+                          lambda: dntt.ntt(x))
+        assert torch.equal(got, want), "sharded_ntt disagrees with ntt.ntt"
+        # (c) a transfer batch of four over the dp axis
+        reg = load_example("simple_token")
+        if keys is None:
+            keys = pipeline.synthesize_keys(reg, "token.aleo", "transfer", srs=srs, cache=False)
+        syns = [pipeline.synthesize_and_check(keys, reg, transfer_inputs(100 + i), SENDER,
+                                              lambda: 11) for i in range(BATCH_K)]
+        cs4 = [syn.cs for syn in syns]
+        proofs, plain = check(
+            "prove_batch_mesh",
+            lambda: batch_mod.prove_batch(keys.index, cs4, rng=random.Random(SEED), mesh=mesh),
+            lambda: batch_mod.prove_batch(keys.index, cs4, rng=random.Random(SEED)))
+        dims = (keys.index.n, keys.index.m, keys.index.ell)
+        assert [proof_to_bytes(p, *dims) for p in proofs] == \
+            [proof_to_bytes(p, *dims) for p in plain], "the sharded batch's bytes differ"
+        assert verify(keys.vk, syns[0].public_inputs, proofs[0]), "a sharded batch proof does not verify"
+        # (d) the entry step against the host: the round's evaluations, the MSM
+        step, args = graft_entry.entry()
+        (h, ax, ay, az), _ = check("graft_entry", lambda: step(*args))
+        zs = [int(v) for v in FR_RING.decode(args[0])]
+        ev = rpoly.coset_ntt(rpoly.ntt(zs, invert=True) + [0] * len(zs), params.FR_GENERATOR)
+        assert [int(v) for v in FR_RING.decode(h)] == [v * v % R for v in ev], "entry: h"
+        sc = [int(v) for v in limbs.limbs_to_ints(limbs.to_numpy(args[1]))]
+        assert g1mod.decode_points(g1mod.G1Points(ax, ay, az)) == \
+            [msm_pippenger_jac(sc, graft_entry._gen_points(len(sc)))], "entry: the MSM"
+        # (e) the dry run, which checks itself against the host
+        check("dryrun_multichip", lambda: graft_entry.dryrun_multichip(1))
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(init_dir, ignore_errors=True)
+    for k in MESH_KERNELS:
+        assert path.get(k, 0) > 0, f"{k} was never launched in the mesh phase"
+    torch.cuda.synchronize()
+    say({"phase": "mesh", "world": 1, "mesh": [1, 1], "backend": "nccl", "cards": 1,
+         "exchanges_verified_on_cards": False, "msm_points": MESH_POINTS,
+         "ntt": list(MESH_NTT), "batch_k": BATCH_K, **checks,
+         "launches": _nonzero(path), "seconds": round(time.time() - t0, 3)})
+    return path
+
+
+def phase_sdk():
+    """The host SDK at full width on the card: a verifying ledger, a proved
+    token.aleo/transfer through ProgramManager (its keys synthesized by the
+    pipeline over the cached SRS), accepted by the ledger; a tampered copy
+    refused; a wallet scan of SDK_RECORDS credits ciphertexts through the
+    device ECDH, equal to the per-record host scan. The counts are set to 0
+    at the start and read after the batched scan."""
+    t0 = time.time()
+    reset_launches()
+    ledger = Ledger(verify_proofs=True)
+    alice, bob = PrivateKey(seed=SEED), PrivateKey(seed=SEED + 1)
+    ledger.genesis_mint(alice.address().to_string(), SDK_RECORDS * 1_000_000,
+                        n_records=SDK_RECORDS)
+    token = load_program("simple_token")
+    ledger.program_sources[token.id] = token.source
+    ledger.registry.add(token)
+    client = LocalAPIClient(ledger)
+    pm = ProgramManager(client, private_key=alice)
+    pm.add_program(token.source)
+    rec = Record("token.aleo", "token", owner=alice.address().x, gates=0,
+                 entries={"amount": Value("u64", 500)}, nonce=7)
+    inputs = [rec, Value("address", bob.address().x), Value("u64", 120)]
+    t1 = time.time()
+    tx_id = pm.execute_program("token.aleo", "transfer", inputs, prove=True)
+    torch.cuda.synchronize()
+    execute_s = time.time() - t1
+    tx = client.get_transaction(tx_id)
+    keys = pm._function_keys("token.aleo", "transfer")
+    assert tx.transitions()[0].proof is not None
+    assert (keys.index.n, keys.index.m) == (8192, 32768)
+    # the ledger verified the proof on broadcast; a copy with another public
+    # input (and no serial numbers, which the first one spent) is refused
+    bad = copy.deepcopy(tx)
+    bad.id = "at1" + "0" * 32
+    bt = bad.transitions()[0]
+    bt.public_inputs[1] = (bt.public_inputs[1] + 1) % R
+    bt.serial_numbers = []
+    try:
+        client.transaction_broadcast(bad)
+        raise AssertionError("the ledger accepted a tampered proof")
+    except ApiError as e:
+        assert "invalid proof" in str(e), e
+    # the wallet scan: one device ladder over the SDK_RECORDS ciphertexts
+    lanes = []
+    real = api_client.shared_secrets
+    api_client.shared_secrets = lambda v, pts, device=None: lanes.append(len(pts)) or real(
+        v, pts, device=device)
+    try:
+        found, scan_s = _timed(lambda: client.get_unspent_records(alice))
+    finally:
+        api_client.shared_secrets = real
+    launches = all_launches()
+    assert lanes == [SDK_RECORDS], lanes
+    min_batch = api_client.BATCH_ECDH_MIN
+    api_client.BATCH_ECDH_MIN = SDK_RECORDS + 1
+    try:
+        host_found, host_s = _timed(lambda: client.get_unspent_records(alice))
+    finally:
+        api_client.BATCH_ECDH_MIN = min_batch
+    assert len(found) == SDK_RECORDS
+    assert [(c, r.entries["microcredits"].data) for c, r in found] == \
+        [(c, r.entries["microcredits"].data) for c, r in host_found], "the scans differ"
+    for k in SDK_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched in the sdk phase"
+    say({"phase": "sdk", "n": keys.index.n, "m": keys.index.m,
+         "execute_prove_seconds": execute_s, "ledger_verified": True,
+         "tampered_refused": True, "scan_ciphertexts": SDK_RECORDS,
+         "scan_device_seconds": scan_s, "scan_host_seconds": host_s,
+         "launches": _nonzero(launches), "seconds": round(time.time() - t0, 3)})
+    return launches
+
+
+def phase_scan_widths():
+    """The view-key ECDH of a record scan at SCAN_WIDTHS ciphertexts: the
+    device ladder over all of them against the host ECDH of each, on the
+    same points (running sums of two random points) and a random view
+    scalar below the group order. Every lane is held equal. `crossover_est`
+    is where a line through the device times (ladder seconds against width)
+    meets the host's mean seconds a record times the width."""
+    t0 = time.time()
+    rng = random.Random(SEED + 13)
+    view = rng.randrange(1, edwards.ORDER)
+    P, Q = edwards.rand(rng), edwards.rand(rng)
+    pts = [P]
+    for _ in range(max(SCAN_WIDTHS) - 1):
+        pts.append(edwards.add(pts[-1], Q))
+    ed.shared_secrets(3, pts[:8])                       # first call on the card
+    rows = []
+    for w in SCAN_WIDTHS:
+        got, dev_s = _timed(lambda: ed.shared_secrets(view, pts[:w]))
+        want, host_s = _timed(lambda: [edwards.mul(view, p) for p in pts[:w]])
+        assert got == want, f"shared_secrets differs from the host at {w} points"
+        rows.append({"ciphertexts": w, "device_s": dev_s, "host_s": host_s,
+                     "host_ms_per_record": 1e3 * host_s / w})
+    widths, dev = [r["ciphertexts"] for r in rows], [r["device_s"] for r in rows]
+    mw, md = sum(widths) / len(widths), sum(dev) / len(dev)
+    slope = sum((w - mw) * (d - md) for w, d in zip(widths, dev)) / \
+        sum((w - mw) ** 2 for w in widths)
+    fixed = md - slope * mw
+    host_per = sum(r["host_s"] for r in rows) / sum(widths)
+    crossover = fixed / (host_per - slope) if host_per > slope else None
+    say({"phase": "scan_widths", "view_bits": view.bit_length(), "widths": rows,
+         "device_fixed_s": fixed, "device_s_per_record": slope,
+         "host_s_per_record": host_per, "crossover_est": crossover,
+         "batch_ecdh_min": api_client.BATCH_ECDH_MIN,
+         "seconds": round(time.time() - t0, 3)})
 
 
 def _load_tool(name):
@@ -1919,17 +2209,18 @@ def phase_tools():
 def main(argv):
     t_all = time.time()
     want = set(argv) or set(PHASES)
-    if want - PHASES:
-        sys.exit(f"chip_smoke: unknown phase {sorted(want - PHASES)}")
+    if want - PHASES - OPT_IN_PHASES:
+        sys.exit(f"chip_smoke: unknown phase {sorted(want - PHASES - OPT_IN_PHASES)}")
     card = phase_device()
     kres = phase_kernels() if "kernels" in want else None
     srs = None
-    if want & {"msm", "micro", "transfer", "batch", "fixed_base", "limbs_last"}:
+    if want & {"msm", "micro", "transfer", "batch", "fixed_base", "limbs_last", "mesh", "sdk"}:
         t0 = time.time()
         # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
-        # (micro needs fewer and takes the same one)
-        deg = 32769 if want & {"msm", "transfer", "batch", "fixed_base", "limbs_last"} else 8193
-        srs = Srs.generate(deg, device=DEV)
+        # (micro needs fewer and takes the same one); cached where the
+        # pipeline's own key synthesis (phase sdk) looks for it
+        deg = 32769 if want - {"micro", "kernels", "matntt", "tools", "record_scan"} else 8193
+        srs = Srs.load_or_generate(deg, device=DEV)
         say({"phase": "srs", "powers": deg + 1, "seconds": round(time.time() - t0, 3)})
     to_affine_launches = None
     if "msm" in want:
@@ -1947,14 +2238,19 @@ def main(argv):
     ll_launches = phase_limbs_last(srs) if "limbs_last" in want else None
     if "record_scan" in want:
         phase_record_scan()
+    mesh_launches = phase_mesh(srs, keys) if "mesh" in want else None
+    sdk_launches = phase_sdk() if "sdk" in want else None
+    if "scan_widths" in want:
+        phase_scan_widths()
     if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches,
-                    fb_launches, ll_launches):
+                    fb_launches, ll_launches, mesh_launches, sdk_launches):
         # `launches` is a kernel's count on the main path that runs it: the
         # transfer proof (K1-K12 and the inversion tree), to_affine (fq_mul),
         # the two scripts (the product kernels); `launches_batch` its count
         # in the k = 4 batch; `launches_fixed_base` in the transfer proof
         # with the fixed-base MSM on ("auto") that builds its tables;
-        # `launches_limbs_last` in the limbs_last phase
+        # `launches_limbs_last` in the limbs_last phase; `launches_mesh` in
+        # the mesh phase's sharded calls; `launches_sdk` in the sdk phase
         on_path = {**launches, "fq_mul": to_affine_launches["fq_mul"],
                    **{k: tool_launches[k] for k in PROTO_KERNELS}}
         say({"kernels": [
@@ -1963,6 +2259,8 @@ def main(argv):
              "launches": on_path[name], "launches_batch": batch_launches[name],
              "launches_fixed_base": fb_launches[name],
              "launches_limbs_last": ll_launches.get(name, 0),
+             "launches_mesh": mesh_launches.get(name, 0),
+             "launches_sdk": sdk_launches.get(name, 0),
              "max_abs_err": r["max_abs_err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None}

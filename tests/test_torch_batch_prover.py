@@ -9,7 +9,9 @@ against `aleo_tpu.snark.batch`, tolerance 0 (field and group elements).
   (b) `prove_batch` on the cubic circuit of tests/test_batch_prover.py (SRS
       degree 63, k = 3): every proof verifies under both packages'
       verifiers, a proof is bound to its own statement, and with the same
-      seeded `rng` the bytes equal the reference's proof by proof; k = 1.
+      seeded `rng` the bytes equal the reference's proof by proof, on one
+      device and sharded over three gloo ranks as (dp, field) = (3, 1)
+      (how the ranks run: tests/test_torch_mesh.py); k = 1.
 """
 
 import pickle
@@ -34,6 +36,8 @@ from aleo_tpu_torch.snark import pipeline as tpipe
 from aleo_tpu_torch.snark import prover as tprover
 from aleo_tpu_torch.snark import serialize as tser
 from aleo_tpu_torch.snark import verifier as tver
+from test_torch_batch_mesh import batch_worker
+from test_torch_mesh import Ranks
 from tests.test_snark import cubic_circuit
 
 torch.set_num_threads(2)        # several test workers share the machine
@@ -208,14 +212,38 @@ def test_batch_proofs_verify_under_the_port_verifier(setup, batch_proofs):
     assert batch_proofs[0].commitments["z"] != batch_proofs[1].commitments["z"]
 
 
-def test_batch_proof_bytes_equal_the_reference(setup, batch_proofs):
-    jindex, tindex, cs_list = setup
-    jproofs = jbatch.prove_batch(jindex, cs_list, rng=random.Random(9))
+@pytest.fixture(scope="module")
+def jax_batch_proofs(setup):
+    jindex, _, cs_list = setup
+    return jbatch.prove_batch(jindex, cs_list, rng=random.Random(9))
+
+
+def test_batch_proof_bytes_equal_the_reference(setup, batch_proofs, jax_batch_proofs):
+    _, tindex, _ = setup
+    jproofs = jax_batch_proofs
     dims = (tindex.n, tindex.m, tindex.ell)
     for tp, jp in zip(batch_proofs, jproofs):
         assert tser.proof_to_bytes(tp, *dims) == jser.proof_to_bytes(jp, *dims)
         assert tp.commitments == jp.commitments
         assert tp.evals_beta == jp.evals_beta and tp.evals_gamma == jp.evals_gamma
+
+
+def test_sharded_batch_bytes_equal_the_reference(setup, jax_batch_proofs, tmp_path):
+    """prove_batch(mesh=make_mesh(dp=3)) over three gloo ranks, one proof a
+    rank, on the same circuits and seed: every rank returns all three
+    proofs, byte for byte the reference's; two proofs, which do not divide
+    over dp = 3, are refused."""
+    _, tindex, cs_list = setup
+    xs = (3, 5, 11)
+    assert [cs.public_inputs() for cs in cs_list] == \
+        [cubic_circuit(x).public_inputs() for x in xs]
+    dims = (tindex.n, tindex.m, tindex.ell)
+    want = [jser.proof_to_bytes(jp, *dims) for jp in jax_batch_proofs]
+    assert len(set(want)) == K
+    for got, ntts, uneven in Ranks(tmp_path, 3, batch_worker, xs, 3).results():
+        assert got == want
+        assert sum(ntts.values()) > 0
+        assert uneven == "refused"
 
 
 def test_batch_through_matntt_gives_the_same_bytes(setup, batch_proofs, monkeypatch):

@@ -16,6 +16,7 @@ import pytest
 from aleo_tpu.curves import edwards_device as jed
 from aleo_tpu_torch.curves import edwards_device as ted
 from aleo_tpu_torch.reference import edwards as E
+from aleo_tpu_torch.reference.field import FR
 
 JAX_BITS = 100
 SCALARS = {"one": 1, "two": 2, "100-bit": (1 << 99) | 0x5DEECE66D}
@@ -61,3 +62,39 @@ def test_shared_secrets_match_jax_and_host(points, name):
         # the port's ladder on the same zero-led bits
         xy = ted.encode_points(points, device="cpu")
         assert ted.decode_points(ted.scalar_mul_batch(_bits(k, 8), *xy)) == got
+
+
+def _f5_point(rng):
+    """An off-curve point P with 1 + d*t = 0 in the ladder's second step,
+    add(2P, P): for a random u, s = (d^2 u^4 - 1) / (2 d u^2), and x^2, y^2
+    the roots of z^2 - s z + u^2 with x y = u."""
+    R, D = E.R, E.D
+    while True:
+        u = rng.randrange(1, R)
+        s = (D * D * pow(u, 4, R) - 1) * pow(2 * D * u * u, -1, R) % R
+        disc = (s * s - 4 * u * u) % R
+        if not FR.is_square(disc):
+            continue
+        x2 = (s + FR.sqrt(disc)) * pow(2, -1, R) % R
+        if x2 == 0 or not FR.is_square(x2):
+            continue
+        x = FR.sqrt(x2)
+        return (x, u * pow(x, -1, R) % R)
+
+
+def test_an_off_curve_point_leaves_the_other_lanes_right():
+    """F5: one off-curve ephemeral point among honest ones. The bare ladder
+    inverts a zero denominator in the whole batch and gets every honest lane
+    wrong; shared_secrets equals the host ECDH on every lane."""
+    rng = random.Random(805)
+    bad = _f5_point(rng)
+    assert not E.is_on_curve(bad)
+    pts = [E.rand(rng) for _ in range(3)] + [bad]
+    # 16 bits, the top two set; even, since the host's ladder (low bit
+    # first) would meet the same zero denominator adding P to 2P
+    view = (0b11 << 14) | (rng.randrange(1 << 13) << 1)
+    want = [E.mul(view, p) for p in pts]
+    ladder = ted.decode_points(
+        ted.scalar_mul_batch(_bits(view, 16), *ted.encode_points(pts, device="cpu")))
+    assert all(ladder[i] != want[i] for i in range(3))
+    assert ted.shared_secrets(view, pts, device="cpu") == want

@@ -61,13 +61,19 @@ def test_importing_the_port_does_not_load_jax():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     import torch
 
+    from aleo_tpu_torch import graft_entry
     from aleo_tpu_torch.curves import edwards_device, g1, g1_affine, g1_fused
     from aleo_tpu_torch.fields import fr_lf
     from aleo_tpu_torch.fields.modring import FQ_RING, FR_RING
     from aleo_tpu_torch.msm import msm
+    from aleo_tpu_torch.parallel import mesh
     from aleo_tpu_torch.pcs.srs import Srs
     from aleo_tpu_torch.program.interpreter import Registry
     from aleo_tpu_torch.reference import edwards
+    from aleo_tpu_torch.sdk.account import PrivateKey
+    from aleo_tpu_torch.sdk.api_client import HttpAPIClient, LocalAPIClient
+    from aleo_tpu_torch.sdk.ledger import Ledger
+    from aleo_tpu_torch.sdk.program_manager import ProgramManager
     from aleo_tpu_torch.snark import batch, indexer, pipeline
     from aleo_tpu_torch.snark.r1cs import ConstraintSystem
     from aleo_tpu_torch.snark.snarkvm_bytes import UniversalSrsBlob
@@ -102,6 +108,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: FQ_RING.const(3),
         lambda: edwards_device.shared_secrets(5, [edwards.generator()]),
         lambda: UniversalSrsBlob(0, [None], None, None).to_srs(),
+        lambda: mesh.init_distributed(),
+        lambda: mesh.make_mesh(),
+        lambda: graft_entry.entry(),
+        lambda: LocalAPIClient(Ledger()),
+        lambda: HttpAPIClient("http://localhost:3030"),
+        lambda: ProgramManager(None, private_key=PrivateKey(seed=1)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
