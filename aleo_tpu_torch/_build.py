@@ -5,7 +5,9 @@ for each source and all of them at once, and links the objects into a shared
 library with a plain C interface, which is loaded with `ctypes`. It lands in
 `aleo_tpu_torch/_build/`, keyed by a hash of the sources, so an unchanged
 tree builds once. A failed build raises with the compiler's output; nothing
-falls back to another implementation.
+falls back to another implementation. One lock holds the check, the build
+and the load, so threads that reach the first launch together (the dev
+server's handlers) build once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -27,6 +30,7 @@ NVCC_FLAGS = [
 ]
 
 _lib = None
+_LOCK = threading.Lock()
 BUILD_LOG = ""      # nvcc's output (-Xptxas -v: registers and spills per kernel)
 
 
@@ -72,9 +76,16 @@ def ptxas_info(log: str | None = None) -> dict:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built now if this source state never was)."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
+    global _lib
+    if _lib is None:            # checked again under the lock
+        with _LOCK:
+            if _lib is None:
+                _lib = _build_and_load()
+    return _lib
+
+
+def _build_and_load() -> ctypes.CDLL:
+    global BUILD_LOG
     cu, all_src = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in all_src:
@@ -137,5 +148,4 @@ def library() -> ctypes.CDLL:
                lib.g1_add_sel_proj_launch, lib.g1_normalize_launch,
                lib.fq_mul_canon_launch, lib.fq_mul_chain12_launch, lib.fr_mul_launch):
         fn.restype = ctypes.c_int
-    _lib = lib
     return lib

@@ -1,5 +1,12 @@
 """Configuration of the port (env-var overridable defaults).
 
+  ALEO_TORCH_NETWORK     network id                    (testnet3)
+  ALEO_TORCH_ENDPOINT    node REST endpoint            (empty: the
+                         in-process dev ledger)
+  ALEO_TORCH_DEVNET_PATH pickled dev-ledger path       (~/.aleo_tpu_torch/
+                         devnet.pkl)
+  ALEO_TORCH_SERVER_HOST dev server bind host          (0.0.0.0)
+  ALEO_TORCH_SERVER_PORT dev server port               (4040)
   ALEO_TORCH_SRS_DIR     SRS cache directory           (~/.aleo_tpu_torch/srs)
   ALEO_TORCH_KEY_DIR     function-key cache directory  (~/.aleo_tpu_torch/keys)
   ALEO_TORCH_PROFILE     enable the stage timers       (0)
@@ -35,6 +42,13 @@ def _env(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
 
+NETWORK = _env("ALEO_TORCH_NETWORK", "testnet3")
+ENDPOINT = _env("ALEO_TORCH_ENDPOINT", "")        # "" = in-process dev ledger
+DEVNET_PATH = os.path.expanduser(
+    _env("ALEO_TORCH_DEVNET_PATH", "~/.aleo_tpu_torch/devnet.pkl")
+)
+SERVER_HOST = _env("ALEO_TORCH_SERVER_HOST", "0.0.0.0")
+SERVER_PORT = int(_env("ALEO_TORCH_SERVER_PORT", "4040"))
 SRS_DIR = os.path.expanduser(_env("ALEO_TORCH_SRS_DIR", "~/.aleo_tpu_torch/srs"))
 KEY_DIR = os.path.expanduser(_env("ALEO_TORCH_KEY_DIR", "~/.aleo_tpu_torch/keys"))
 

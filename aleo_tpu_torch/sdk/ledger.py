@@ -24,6 +24,7 @@ from ..program.interpreter import Interpreter, MappingStore, Registry, run_final
 from ..program.parser import parse_program
 from ..program.values import Record, Value
 from ..reference import poseidon
+from ..utils import profiling as prof
 from . import account as acct
 from .credits import CREDITS_PROGRAM
 from .merkle import MerkleTree, verify_path
@@ -208,7 +209,9 @@ class Ledger:
         if vk is None:
             raise LedgerError(f"no verifying key registered for {key}")
         proof, _, _, _ = proof_from_bytes(t.proof)
-        if not verify(vk, t.public_inputs, proof):
+        with prof.stage("ledger/verify"):
+            ok = verify(vk, t.public_inputs, proof)
+        if not ok:
             raise LedgerError(f"invalid proof for transition {t.id}")
 
     def _apply_transaction(self, tx: Transaction):

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, as below
     python3 chip_smoke.py kernels    # only the named phases (device always runs)
     python3 chip_smoke.py mesh sdk   # the multi-device layer and the host SDK
+    python3 chip_smoke.py serve      # the dev server, the worker and the CLI
     python3 chip_smoke.py scan_widths  # opt-in: the scan's two ECDH paths by width
 
 Phases, each printing one JSON line with its seconds:
@@ -155,6 +156,27 @@ Phases, each printing one JSON line with its seconds:
             ledger, a tampered copy refused; a wallet scan through
             LocalAPIClient.get_unspent_records over 64 genesis ciphertexts,
             one device ladder, equal to the per-record host scan
+  serve     the user's ways in, proving credits.aleo transitions at full
+            size over the same SRS into a Ledger(verify_proofs=True) seeded
+            with 9 genesis records (fewer than BATCH_ECDH_MIN: every scan
+            takes the host ECDH), which verifies each proof on broadcast:
+            (a) the dev server (DevServer, prove=True, on 127.0.0.1) through
+            DevelopmentClient: a private transfer with the request's key, one
+            with the server's key ciphertext and a password, a join with a
+            fee (three distinct serial numbers and a fee transition) and a
+            split of a record holding more than the split amount and less
+            than twice it; HttpAPIClient on the same server reads the height
+            and each transaction, equal to the ledger's; GET /health; (b) the
+            proving worker (ProvingWorker, prove=True): ALEO_TRANSFER
+            private_to_public and ALEO_EXECUTE_PROGRAM_ON_CHAIN
+            credits.aleo/transfer_public, fee 0, the public balances read
+            back; (c) the CLI (`cli.main`, its devnet file under a temporary
+            directory): devnet mint, transfer --prove --device cuda, the
+            proof verified against the verifying key the devnet file holds,
+            then `devnet status` in a process with CUDA_VISIBLE_DEVICES=""
+            (height 2: the file is bound to no device). Seconds and the
+            (n, m) of each proof per request; the kernels' launches over the
+            phase (counts set to 0 at its start)
   scan_widths  opt-in (only when named; a partial run): the record scan's
             two ECDH paths at 64, 256, 1024 and 4096 ciphertexts, one device
             ladder (shared_secrets, what api_client._batch_shared calls from
@@ -175,7 +197,9 @@ float32 rate of 67 TFLOP/s = 33.5e12 multiply-adds per second, since an SM
 has half as many int32 lanes as float32 lanes.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import multiprocessing
 import os
@@ -186,6 +210,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from concurrent.futures import ProcessPoolExecutor
 
 import torch
@@ -194,7 +219,7 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device: this script runs on the GPU only\n")
     sys.exit(1)
 
-from aleo_tpu_torch import _build, config, graft_entry, params
+from aleo_tpu_torch import _build, cli, config, graft_entry, params
 from aleo_tpu_torch.curves import edwards_device as ed
 from aleo_tpu_torch.curves import g1 as g1mod
 from aleo_tpu_torch.curves import g1_affine as ga
@@ -227,13 +252,16 @@ from aleo_tpu_torch.reference.field import FR
 from aleo_tpu_torch.reference.msm import msm_pippenger_jac
 from aleo_tpu_torch.snark import batch as batch_mod
 from aleo_tpu_torch.snark import pipeline
-from aleo_tpu_torch.snark.serialize import proof_to_bytes
+from aleo_tpu_torch.snark.serialize import proof_from_bytes, proof_to_bytes
 from aleo_tpu_torch.snark.snarkvm_bytes import UniversalSrsBlob
-from aleo_tpu_torch.sdk import api_client
+from aleo_tpu_torch.sdk import api_client, encryptor, wire
 from aleo_tpu_torch.sdk.account import PrivateKey
-from aleo_tpu_torch.sdk.api_client import ApiError, LocalAPIClient
+from aleo_tpu_torch.sdk.api_client import ApiError, HttpAPIClient, LocalAPIClient
+from aleo_tpu_torch.sdk.dev_server import DevServer
+from aleo_tpu_torch.sdk.development_client import DevelopmentClient
 from aleo_tpu_torch.sdk.ledger import Ledger
 from aleo_tpu_torch.sdk.program_manager import ProgramManager
+from aleo_tpu_torch.sdk.worker import ProvingWorker
 from aleo_tpu_torch.snark.verifier import verify
 from aleo_tpu_torch.utils import profiling as prof
 
@@ -300,11 +328,14 @@ RS_POINTS, RS_ECDH_CHECKED = 16384, 16
 # NTT at 2^17 as 256 x 512; phase sdk: the genesis records of the wallet scan
 MESH_POINTS, MESH_NTT = 32768, (256, 512)
 SDK_RECORDS = 64
+# phase serve: alice's genesis records (carol holds one more), the join's fee,
+# the split's amount (carol's record holds 1M: more than it, less than twice)
+SERVE_RECORDS, SERVE_FEE, SERVE_SPLIT = 8, 10_000, 600_000
 # opt-in phase scan_widths: the widths of the scan's ECDH
 SCAN_WIDTHS = (64, 256, 1024, 4096)
 OPT_IN_PHASES = {"scan_widths"}
 PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools",
-          "limbs_last", "record_scan", "mesh", "sdk"}
+          "limbs_last", "record_scan", "mesh", "sdk", "serve"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
 _G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
@@ -332,7 +363,7 @@ AFFINE_KERNELS = ("fq_prepare", "fq_inv_up", "fq_fermat", "fq_inv_down", "fq_app
 PROJECTIVE_KERNELS = ("g1_double", "g1_add", "g1_add_sel", "g1_add_sel_proj")
 PROTO_KERNELS = ("fq_mul_canon", "fq_mul_chain12", "fr_mul")
 # the kernels of the mesh phase's paths (both MSM modes, MatNTT) and of the
-# sdk phase's (a batch-affine proof and its keys)
+# sdk and serve phases' (batch-affine proofs and their keys)
 MESH_KERNELS = AFFINE_KERNELS + PROJECTIVE_KERNELS + ("g1_normalize", "fmat_reduce")
 SDK_KERNELS = AFFINE_KERNELS + ("g1_normalize", "fmat_reduce")
 
@@ -2146,6 +2177,165 @@ def phase_sdk():
     return launches
 
 
+def _proof_dims(tx):
+    """[function, n, m] of each transition of a transaction, from its proof
+    bytes (each must carry one)."""
+    dims = []
+    for t in tx.transitions():
+        assert t.proof is not None, f"{t.function} carries no proof"
+        _proof, n, m, _ell = proof_from_bytes(t.proof)
+        dims.append([t.function, n, m])
+    return dims
+
+
+def _balances(ledger, *pks):
+    client = LocalAPIClient(ledger, device=DEV)
+    return [sorted(r.entries["microcredits"].data for _c, r in client.get_unspent_records(pk))
+            for pk in pks]
+
+
+def phase_serve():
+    """The dev server, the proving worker and the CLI, each proving
+    credits.aleo transitions on the card into a verifying ledger (see the
+    module's docstring). The counts are set to 0 at the start and read at
+    the end of the phase."""
+    t0 = time.time()
+    reset_launches()
+    requests = []
+    prof.enable()
+    try:
+        launches, summary = _serve_requests(requests)
+    finally:
+        prof.enable(False)
+    for k in SDK_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched in the serve phase"
+    torch.cuda.synchronize()
+    say({"phase": "serve", "ledger_verified": True, **summary,
+         "requests": [{k: v for k, v in r.items() if k != "tx"} for r in requests],
+         "launches": _nonzero(launches), "seconds": round(time.time() - t0, 3)})
+    return launches
+
+
+def _serve_requests(requests):
+    """Phase serve's three parts; each request's seconds, proofs and stage
+    timers (key synthesis, proof, the ledger's verification) appended to
+    `requests` -> (launches, summary)."""
+
+    def request(name, ledger, fn):
+        prof.reset()
+        tx_id, seconds = _timed(fn)
+        tx = ledger.transactions[tx_id]
+        requests.append({"request": name, "tx": tx_id, "seconds": seconds,
+                         "proofs": _proof_dims(tx),
+                         "stages": {k: v["seconds"] for k, v in prof.report().items()
+                                    if k.startswith(("pipeline/", "ledger/"))}})
+        return tx
+
+    ledger = Ledger(verify_proofs=True)
+    alice, bob, carol = (PrivateKey(seed=SEED + 40 + i) for i in range(3))
+    to_alice, to_bob = alice.address().to_string(), bob.address().to_string()
+    ledger.genesis_mint(to_alice, SERVE_RECORDS * 1_000_000, n_records=SERVE_RECORDS)
+    ledger.genesis_mint(carol.address().to_string(), 1_000_000)
+    assert len(ledger.record_ciphertexts) < api_client.BATCH_ECDH_MIN
+    # (a) the dev server, through the development client
+    ct = encryptor.encrypt_private_key_with_secret(alice, "serve-pw")
+    srv = DevServer(LocalAPIClient(ledger, device=DEV), key_ciphertext=ct,
+                    host="127.0.0.1", port=0, prove=True, device=DEV)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        dc = DevelopmentClient(base)
+        request("server transfer, request key", ledger,
+                lambda: dc.transfer(100_000, 0, to_bob, private_key=alice.to_string()))
+        request("server transfer, server key", ledger,
+                lambda: dc.transfer(100_000, 0, to_bob, password="serve-pw"))
+        tx = request("server join, fee", ledger, lambda: dc._post(
+            "join", {"private_key": alice.to_string(), "fee": SERVE_FEE}))
+        serials = [sn for t in tx.transitions() for sn in t.serial_numbers]
+        assert len(serials) == 3 == len(set(serials)), serials
+        assert tx.fee_transition is not None and tx.fee_transition.function == "fee"
+        held = {r.serial_number(carol.sk): r.entries["microcredits"].data
+                for _c, r in LocalAPIClient(ledger, device=DEV).get_unspent_records(carol)}
+        tx = request("server split", ledger, lambda: dc._post(
+            "split", {"private_key": carol.to_string(), "split_amount": SERVE_SPLIT}))
+        (sn,) = tx.transitions()[0].serial_numbers
+        assert SERVE_SPLIT < held[sn] < 2 * SERVE_SPLIT, held[sn]
+        http = HttpAPIClient(base, device=DEV)
+        assert http.latest_height() == ledger.latest_height
+        for r in requests:
+            assert wire.transaction_to_json(http.get_transaction(r["tx"])) == \
+                wire.transaction_to_json(ledger.transactions[r["tx"]])
+        with urllib.request.urlopen(base + "/health", timeout=60) as resp:
+            assert json.loads(resp.read()) == "ok"
+    finally:
+        srv.stop()
+    assert _balances(ledger, alice, bob, carol) == [
+        [900_000, 900_000, 1_000_000 - SERVE_FEE, 1_000_000, 1_000_000, 1_000_000,
+         2_000_000],
+        [100_000, 100_000], [1_000_000 - SERVE_SPLIT, SERVE_SPLIT]]
+    # (b) the proving worker, on the same ledger
+    worker = ProvingWorker(LocalAPIClient(ledger, device=DEV), prove=True,
+                           device=DEV).start()
+    try:
+        request("worker ALEO_TRANSFER private_to_public", ledger, lambda: worker.call({
+            "type": "ALEO_TRANSFER", "amountCredits": 300_000, "recipient": to_alice,
+            "transfer_type": "private_to_public", "privateKey": alice.to_string(),
+        })["transaction"])
+        request("worker ALEO_EXECUTE_PROGRAM_ON_CHAIN transfer_public", ledger,
+                lambda: worker.call({
+                    "type": "ALEO_EXECUTE_PROGRAM_ON_CHAIN", "programId": "credits.aleo",
+                    "aleoFunction": "transfer_public", "inputs": [to_bob, "100000u64"],
+                    "privateKey": alice.to_string(), "fee": 0,
+                })["transaction"])
+    finally:
+        worker.stop()
+    public = [ledger.get_mapping_value("credits.aleo", "account", pk.address().x).data
+              for pk in (alice, bob)]
+    assert public == [200_000, 100_000], public
+    # (c) the CLI, its devnet file under a temporary directory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_devnet_")
+    devnet_path, saved = os.path.join(tmp, "devnet.pkl"), cli.DEVNET_PATH
+    cli.DEVNET_PATH = devnet_path
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["devnet", "mint", "--address", to_alice, "--amount", "4000000",
+                      "--records", "4"])
+
+        def transfer():
+            with contextlib.redirect_stdout(out):
+                cli.main(["transfer", "--prove", "--device", "cuda", "--amount", "100000",
+                          "--recipient", to_bob, "--private-key", alice.to_string()])
+            return out.getvalue().split("transfer transaction: ")[1].split()[0]
+
+        prof.reset()
+        tx_id, seconds = _timed(transfer)
+        stages = {k: v["seconds"] for k, v in prof.report().items() if k.startswith("pipeline/")}
+        devnet = cli._load_ledger(DEV)
+        tx = devnet.transactions[tx_id]
+        requests.append({"request": "cli transfer --prove", "tx": tx_id, "seconds": seconds,
+                         "proofs": _proof_dims(tx), "stages": stages})
+        t = tx.transitions()[0]
+        proof = proof_from_bytes(t.proof)[0]
+        vk = devnet.function_vks["credits.aleo/transfer_private"]
+        assert vk.srs.powers.x.device.type == "cuda"
+        assert verify(vk, t.public_inputs, proof), "the CLI's proof does not verify"
+        code = ("import torch\n"
+                "assert not torch.cuda.is_available()\n"
+                "from aleo_tpu_torch import cli\n"
+                "cli.main(['devnet', 'status'])\n")
+        proc = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "ALEO_TORCH_DEVNET_PATH": devnet_path})
+        assert proc.returncode == 0 and "height: 2" in proc.stdout, proc.stdout + proc.stderr
+    finally:
+        cli.DEVNET_PATH = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    return all_launches(), {"join_serials_distinct": True, "split_record": held[sn],
+                            "devnet_status_without_cuda": proc.stdout.split("\n")[0]}
+
+
 def phase_scan_widths():
     """The view-key ECDH of a record scan at SCAN_WIDTHS ciphertexts: the
     device ladder over all of them against the host ECDH of each, on the
@@ -2214,11 +2404,12 @@ def main(argv):
     card = phase_device()
     kres = phase_kernels() if "kernels" in want else None
     srs = None
-    if want & {"msm", "micro", "transfer", "batch", "fixed_base", "limbs_last", "mesh", "sdk"}:
+    if want & {"msm", "micro", "transfer", "batch", "fixed_base", "limbs_last", "mesh", "sdk",
+               "serve"}:
         t0 = time.time()
         # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
         # (micro needs fewer and takes the same one); cached where the
-        # pipeline's own key synthesis (phase sdk) looks for it
+        # pipeline's own key synthesis (phases sdk and serve) looks for it
         deg = 32769 if want - {"micro", "kernels", "matntt", "tools", "record_scan"} else 8193
         srs = Srs.load_or_generate(deg, device=DEV)
         say({"phase": "srs", "powers": deg + 1, "seconds": round(time.time() - t0, 3)})
@@ -2240,17 +2431,19 @@ def main(argv):
         phase_record_scan()
     mesh_launches = phase_mesh(srs, keys) if "mesh" in want else None
     sdk_launches = phase_sdk() if "sdk" in want else None
+    serve_launches = phase_serve() if "serve" in want else None
     if "scan_widths" in want:
         phase_scan_widths()
     if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches,
-                    fb_launches, ll_launches, mesh_launches, sdk_launches):
+                    fb_launches, ll_launches, mesh_launches, sdk_launches, serve_launches):
         # `launches` is a kernel's count on the main path that runs it: the
         # transfer proof (K1-K12 and the inversion tree), to_affine (fq_mul),
         # the two scripts (the product kernels); `launches_batch` its count
         # in the k = 4 batch; `launches_fixed_base` in the transfer proof
         # with the fixed-base MSM on ("auto") that builds its tables;
         # `launches_limbs_last` in the limbs_last phase; `launches_mesh` in
-        # the mesh phase's sharded calls; `launches_sdk` in the sdk phase
+        # the mesh phase's sharded calls; `launches_sdk` in the sdk phase;
+        # `launches_serve` in the serve phase
         on_path = {**launches, "fq_mul": to_affine_launches["fq_mul"],
                    **{k: tool_launches[k] for k in PROTO_KERNELS}}
         say({"kernels": [
@@ -2261,6 +2454,7 @@ def main(argv):
              "launches_limbs_last": ll_launches.get(name, 0),
              "launches_mesh": mesh_launches.get(name, 0),
              "launches_sdk": sdk_launches.get(name, 0),
+             "launches_serve": serve_launches.get(name, 0),
              "max_abs_err": r["max_abs_err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None}
