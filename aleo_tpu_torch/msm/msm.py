@@ -49,6 +49,10 @@ from ..fields.limbs import STORE
 
 NBITS = params.R.bit_length()  # 253
 
+# rounds of the bucket accumulation, summed over every pipeline run in the
+# process (a reader takes differences; chip_smoke.py prints them per MSM)
+ROUNDS = {"rounds": 0}
+
 
 def auto_c(n: int) -> int:
     """Pippenger window size for an n-point MSM: ~log2(n) - 2 balances the
@@ -249,6 +253,7 @@ def run_rounds_af(sorted_pt, sorted_sign, table, lane_start, lane_stride,
     total = lanes + n_spare
     # the one device->host read of an MSM: how many rounds its data needs
     max_count = int(all_count.max().item())
+    ROUNDS["rounds"] += max_count
     acc = ga.identity_af(total, device=dev)
 
     for j in range(max_count):
@@ -479,6 +484,7 @@ def _accumulate_buckets(
     # the one device->host read of a batch of MSMs: how many rounds its data
     # needs
     max_count = int(lane_count.max().item())
+    ROUNDS["rounds"] += max_count
     acc = gf.identity_lf(lanes, device=dev)
     for j in range(max_count):
         pos = torch.clamp(lane_start + j * lane_stride, max=m_exp - 1)

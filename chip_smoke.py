@@ -5,6 +5,7 @@
     python3 chip_smoke.py kernels    # only the named phases (device always runs)
     python3 chip_smoke.py mesh sdk   # the multi-device layer and the host SDK
     python3 chip_smoke.py serve      # the dev server, the worker and the CLI
+    python3 chip_smoke.py bench      # aleo_tpu_torch/bench.py's sizes, held first
     python3 chip_smoke.py scan_widths  # opt-in: the scan's two ECDH paths by width
 
 Phases, each printing one JSON line with its seconds:
@@ -177,6 +178,27 @@ Phases, each printing one JSON line with its seconds:
             (height 2: the file is bound to no device). Seconds and the
             (n, m) of each proof per request; the kernels' launches over the
             phase (counts set to 0 at its start)
+  bench     the JAX package's bench entry point at its own sizes, through
+            aleo_tpu_torch/bench.py's section functions, every size held
+            against the host before it is timed (the host's side in worker
+            processes meanwhile): fmat_reduce against its plain version at
+            (76, 2^22), the widest stage of these transforms, and its device
+            time there; the MSMs over the bench's 64 points tiled (so about
+            one lane in 32 of a round meets P + P or P + (-P)), each equal to
+            the tiled oracle (per point class, the scalars summed in int64,
+            then a host MSM of the 64 points): msm_fast_host at 2^16 in both
+            MSM modes, msm_batch_host at k = 4 x 2^16 (equal to four
+            msm_fast_host calls too), one chunk of 2^22 points in both modes,
+            with the rounds each ran; then bench_msm and bench_msm_2e24 timed,
+            their points against the oracle (all four chunks and their sum);
+            ntt_lf and coset_ntt_lf at 2^20 and 2^22 on random data: MatNTT
+            equal to the butterfly after normalize, both round trips, index 0
+            equal to the host sum, two indices (one of the coset) equal to
+            host Horner evaluations; bench_ntt timed; a batch of 16 transfers
+            (the bench's inputs) through prove_batch, proofs 0 and 15
+            verified, proof 0 rejected under proof 1's public inputs, its
+            peak device memory; each section's seconds, the bench's detail
+            and the kernels' launches over the phase
   scan_widths  opt-in (only when named; a partial run): the record scan's
             two ECDH paths at 64, 256, 1024 and 4096 ciphertexts, one device
             ladder (shared_secrets, what api_client._batch_shared calls from
@@ -213,13 +235,14 @@ import time
 import urllib.request
 from concurrent.futures import ProcessPoolExecutor
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device: this script runs on the GPU only\n")
     sys.exit(1)
 
-from aleo_tpu_torch import _build, cli, config, graft_entry, params
+from aleo_tpu_torch import _build, bench, cli, config, graft_entry, params
 from aleo_tpu_torch.curves import edwards_device as ed
 from aleo_tpu_torch.curves import g1 as g1mod
 from aleo_tpu_torch.curves import g1_affine as ga
@@ -248,7 +271,7 @@ from aleo_tpu_torch.reference import edwards
 from aleo_tpu_torch.reference import polynomial as rpoly
 from aleo_tpu_torch.reference import poseidon as ref_poseidon
 from aleo_tpu_torch.reference.curve import G1
-from aleo_tpu_torch.reference.field import FR
+from aleo_tpu_torch.reference.field import FR, fr_root_of_unity
 from aleo_tpu_torch.reference.msm import msm_pippenger_jac
 from aleo_tpu_torch.snark import batch as batch_mod
 from aleo_tpu_torch.snark import pipeline
@@ -333,9 +356,19 @@ SDK_RECORDS = 64
 SERVE_RECORDS, SERVE_FEE, SERVE_SPLIT = 8, 10_000, 600_000
 # opt-in phase scan_widths: the widths of the scan's ECDH
 SCAN_WIDTHS = (64, 256, 1024, 4096)
+# phase bench: the sizes of aleo_tpu_torch/bench.py's sections (the JAX
+# bench's): the MSM at 2^16 and a batch of 4 over its table, 4 chunks of 2^22
+# points; the transforms checked on random data at 2^20 and 2^22, K1 at the
+# widest stage they run; a batch of 16 transfers
+BENCH_MSM_N, BENCH_MSM_K = bench.MSM_N, 4
+BENCH_CHUNK, BENCH_CHUNKS = 1 << 22, 4
+BENCH_NTT_LOGNS = (20, 22)
+BENCH_STAGE = 1 << 22
+BENCH_PROOFS = 16
+FR_MONT_INV = pow(1 << (16 * params.FR_LIMBS), -1, R)   # 2^-256 mod r
 OPT_IN_PHASES = {"scan_widths"}
 PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools",
-          "limbs_last", "record_scan", "mesh", "sdk", "serve"}
+          "limbs_last", "record_scan", "mesh", "sdk", "serve", "bench"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
 _G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
@@ -1029,16 +1062,32 @@ def _plant(cols, top):
     cols[:, 3] = top
 
 
+def _stage_product(M, seed):
+    """The first stage of an M-lane MatNTT on the card: its DFT bank, packed
+    random inputs and their int8 product (the stage's raw columns)."""
+    p = matntt.plan(M, False, 1)
+    d = p.dims[0]                                           # 64
+    bank = p.dev(("dft", 0), p.dft_banks[0], DEV)           # (76 * 64, 38 * 64) int8
+    x7 = fmat.pack7(random_fr(M, seed)).reshape(fmat.L7 * d, M // d)
+    x7[:, 0] = 127          # one lane of the largest limbs: its sums pass 2^24
+    return bank, x7, torch._int_mm(bank, x7)                # (76 * 64, M / 64) int32
+
+
+def _stage_columns(prod, M):
+    """The stage's (76, M) raw columns, the hard columns planted among them."""
+    L7, K7 = fmat.L7, fmat.K7
+    d = prod.shape[0] // K7
+    t_cols = prod.reshape(K7, M).clone()
+    full = torch.arange(1, K7 + 1, device=DEV).clamp(max=L7) * (d * 127 * 127)
+    _plant(t_cols, full.to(torch.int32))
+    return t_cols
+
+
 def _fmat_kernels(res):
     """fmat_reduce, fmat_carry2d, fmat_carry3d against their plain versions,
     and the two library products against exact ones."""
     L7, K7, M = fmat.L7, fmat.K7, M_STAGE
-    p = matntt.plan(M, False, 1)
-    d = p.dims[0]                                           # 64
-    bank = p.dev(("dft", 0), p.dft_banks[0], DEV)           # (76 * 64, 38 * 64) int8
-    x7 = fmat.pack7(random_fr(M, SEED + 7)).reshape(L7 * d, M // d)
-    x7[:, 0] = 127          # one lane of the largest limbs: its sums pass 2^24
-    prod = torch._int_mm(bank, x7)                          # (76 * 64, 2048) int32
+    bank, x7, prod = _stage_product(M, SEED + 7)
     # exactness of the int8 product: float64 holds every partial sum (< 2^53)
     # exactly; and an int64 product of 64 lanes on the host
     exact = (bank.double() @ x7.double()).to(torch.int64)
@@ -1049,9 +1098,7 @@ def _fmat_kernels(res):
     assert int_mm_err == 0, "torch._int_mm is not exact"
     assert int(prod.max().item()) > 1 << 24, "the stage's sums should pass 2^24"
 
-    t_cols = prod.reshape(K7, M).clone()
-    full = torch.arange(1, K7 + 1, device=DEV).clamp(max=L7) * (d * 127 * 127)
-    _plant(t_cols, full.to(torch.int32))
+    t_cols = _stage_columns(prod, M)
     got = fk.mont_reduce8(t_cols)
     want = fk._reduce_plain(t_cols)
     torch.cuda.synchronize()
@@ -2372,6 +2419,209 @@ def phase_scan_widths():
          "seconds": round(time.time() - t0, 3)})
 
 
+def _ntt_check_limbs(logn, seed):
+    """(2^logn, 16) uint16 limbs of the bench phase's NTT check input: random
+    values below r, read as Montgomery forms (lane i holds limbs_i * 2^-256)."""
+    a = np.random.default_rng(seed).integers(0, 1 << 16, size=(1 << logn, 16), dtype=np.uint16)
+    a[:, 15] %= R >> 240
+    return a
+
+
+def _ntt_check_eval(logn, seed, x):
+    """Host Horner evaluation of that input at x (run in a worker process)."""
+    return rpoly.evaluate(limbs.limbs_to_ints(_ntt_check_limbs(logn, seed)), x) * FR_MONT_INV % R
+
+
+def _fmat_reduce_at(M):
+    """fmat_reduce against its plain version on the planted real columns of
+    the first stage of an M-lane MatNTT, and its device time there."""
+    _, _, prod = _stage_product(M, SEED + 40)
+    t_cols = _stage_columns(prod, M)
+    del prod
+    got = fk.mont_reduce8(t_cols)
+    err = int_err(got, fk._reduce_plain(t_cols))
+    by_bytes = (fmat.K7 * 4 + fmat.L7) * M / HBM_BYTES_PER_S * 1e3
+    by_ops = REDUCE_MADS * M / INT32_MADS_PER_S * 1e3
+    res = {"lanes": M, "max_abs_err": err,
+           "ms": kernel_ms(lambda a: fk.mont_reduce8(*a), copies((t_cols,), 2)),
+           "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    assert err == 0, f"fmat_reduce disagrees with its plain version at {M} lanes"
+    return res
+
+
+def _rounds_of(fn):
+    """(fn(), the bucket accumulation's rounds in it, seconds)."""
+    r0 = msm_mod.ROUNDS["rounds"]
+    out, secs = _timed(fn)
+    return out, msm_mod.ROUNDS["rounds"] - r0, secs
+
+
+def phase_bench(srs, keys):
+    """The JAX package's bench entry point at its own sizes, through
+    aleo_tpu_torch/bench.py's sections, each size held against the host
+    first: the MSMs against the tiled oracle, the transforms on random data,
+    K1 at the widest stage, then the timed sections and a batch of 16."""
+    t0 = time.time()
+    shift = params.FR_GENERATOR
+    threshold = config.MATNTT_MIN_N
+    assert config.MSM_AFFINE_MODE == "1" and threshold == 1 << 14
+    modes = (("1", "affine"), ("0", "projective"))
+    rounds, secs, ntt, on_card = {}, {}, {}, {}
+    pool = ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # the host's side, in worker processes while the card works: Horner
+        # evaluations of the transforms' check inputs, and the tiled oracles
+        rng = random.Random(SEED + 50)
+        horner = {}
+        for logn in BENCH_NTT_LOGNS:
+            n = 1 << logn
+            w = fr_root_of_unity(n)
+            pts = [("ntt", rng.randrange(1, n)), ("ntt", rng.randrange(1, n)),
+                   ("coset", rng.randrange(n))]
+            horner[logn] = [(kind, k, pool.submit(
+                _ntt_check_eval, logn, SEED + logn,
+                pow(w, k, R) * (shift if kind == "coset" else 1) % R)) for kind, k in pts]
+        oracle = lambda *arrays: pool.submit(bench.tiled_oracle, bench.class_sums(*arrays))
+        want = {"msm": oracle(bench._rand_limbs(BENCH_MSM_N, 0xBE7C))}
+        for i in range(BENCH_MSM_K):
+            want[f"batch_{i}"] = oracle(bench._rand_limbs(BENCH_MSM_N, 100 + i))
+        chunks = [bench._rand_limbs(BENCH_CHUNK, 7000 + i) for i in range(BENCH_CHUNKS)]
+        for i, c in enumerate(chunks):
+            want[f"chunk_{i}"] = oracle(c)
+        want["sum"] = oracle(*chunks)
+        del chunks
+
+        # K1 at the widest stage of these transforms (a comparison: its
+        # launches are not the path's, so the counts are reset after it)
+        k1 = _fmat_reduce_at(BENCH_STAGE)
+        reset_launches()
+
+        # the MSMs at each size, both modes where asked, before any is timed
+        got = {}
+        table = msm_mod.make_table(bench._tiled_points(BENCH_MSM_N, DEV))
+        sc = bench._rand_scalars(BENCH_MSM_N, 0xBE7C, DEV)
+        sc_b = torch.stack([bench._rand_scalars(BENCH_MSM_N, 100 + i, DEV)
+                            for i in range(BENCH_MSM_K)])
+        try:
+            for mode, name in modes:
+                config.MSM_AFFINE_MODE = mode
+                got[f"msm_2e16_{name}"], rounds[f"msm_2e16_{name}"], _ = _rounds_of(
+                    lambda: msm_mod.msm_fast_host(sc, table))
+            config.MSM_AFFINE_MODE = "1"
+            got["batch"], rounds["batch_4x2e16"], _ = _rounds_of(
+                lambda: msm_mod.msm_batch_host(sc_b, table))
+            got["singles"] = [msm_mod.msm_fast_host(sc_b[i], table) for i in range(BENCH_MSM_K)]
+            del table, sc, sc_b
+            table = msm_mod.make_table(bench._tiled_points(BENCH_CHUNK, DEV))
+            sc = bench._rand_scalars(BENCH_CHUNK, 7000, DEV)
+            for mode, name in modes:
+                config.MSM_AFFINE_MODE = mode
+                got[f"chunk_2e22_{name}"], rounds[f"chunk_2e22_{name}"], \
+                    secs[f"chunk_2e22_{name}"] = _rounds_of(lambda: msm_mod.msm_fast_host(sc, table))
+        finally:
+            config.MSM_AFFINE_MODE = "1"
+        del table, sc
+        for key in ("msm_2e16_affine", "msm_2e16_projective"):
+            assert got[key] == want["msm"].result(), f"{key} disagrees with the tiled oracle"
+        batch_want = [want[f"batch_{i}"].result() for i in range(BENCH_MSM_K)]
+        assert got["batch"] == got["singles"] == batch_want, \
+            "msm_batch_host at k = 4 x 2^16 disagrees with msm_fast_host or the oracle"
+        for key in ("chunk_2e22_affine", "chunk_2e22_projective"):
+            assert got[key] == want["chunk_0"].result(), f"{key} disagrees with the tiled oracle"
+        assert rounds["chunk_2e22_affine"] >= BENCH_CHUNK >> 11, rounds
+
+        # the MSM sections, timed, and their points against the oracle
+        detail = {}
+        (pps, out, outs), rounds["bench_msm"], secs["bench_msm"] = _rounds_of(
+            lambda: bench.bench_msm(detail, DEV))
+        assert out == want["msm"].result() and outs == batch_want, "bench_msm's points"
+        (total, parts), rounds["bench_msm_2e24"], secs["bench_msm_2e24"] = _rounds_of(
+            lambda: bench.bench_msm_2e24(detail, DEV))
+        for i, part in enumerate(parts):
+            assert part == want[f"chunk_{i}"].result(), f"chunk {i} of the 2^24 MSM"
+        assert total == want["sum"].result(), "the 2^24 MSM disagrees with the tiled oracle"
+
+        # the transforms at 2^20 and 2^22 on random data: MatNTT against the
+        # butterfly, the round trips, index 0 against the host sum, and
+        # Horner evaluations at w^k and g w^k
+        for logn in BENCH_NTT_LOGNS:
+            n = 1 << logn
+            a = _ntt_check_limbs(logn, SEED + logn)
+            x = torch.from_numpy(a.T.astype(np.int32)).contiguous().to(DEV)
+            host_sum = sum(int(v) << (16 * k) for k, v in
+                           enumerate(a.sum(axis=0, dtype=np.int64))) * FR_MONT_INV % R
+            del a
+            before = fk.LAUNCHES["fmat_reduce"]
+            ev, ev_s = _timed(lambda: dntt.ntt_lf(x))
+            cev, cev_s = _timed(lambda: dntt.coset_ntt_lf(x, shift))
+            assert fk.LAUNCHES["fmat_reduce"] > before, f"2^{logn} did not run MatNTT"
+            assert torch.equal(lf.normalize(dntt.intt_lf(ev)), x), f"round trip at 2^{logn}"
+            assert torch.equal(lf.normalize(dntt.coset_intt_lf(cev, shift)), x), \
+                f"coset round trip at 2^{logn}"
+            before = fk.LAUNCHES["fmat_reduce"]
+            config.MATNTT_MIN_N = 1 << 40                   # the butterfly network
+            try:
+                bev, bfly_s = _timed(lambda: dntt.ntt_lf(x))
+                bcev, cbfly_s = _timed(lambda: dntt.coset_ntt_lf(x, shift))
+            finally:
+                config.MATNTT_MIN_N = threshold
+            assert fk.LAUNCHES["fmat_reduce"] == before
+            assert torch.equal(lf.normalize(ev), lf.normalize(bev)), \
+                f"MatNTT disagrees with the butterfly at 2^{logn}"
+            assert torch.equal(lf.normalize(cev), lf.normalize(bcev)), \
+                f"coset MatNTT disagrees with the butterfly at 2^{logn}"
+            del bev, bcev
+            assert lf.decode(ev[:, :1]) == [host_sum], f"index 0 at 2^{logn}"
+            on_card[logn] = [lf.decode((ev if kind == "ntt" else cev)[:, [k]])[0]
+                             for kind, k, _ in horner[logn]]
+            ntt[str(n)] = {"matntt_s": ev_s, "coset_matntt_s": cev_s, "butterfly_s": bfly_s,
+                           "coset_butterfly_s": cbfly_s,
+                           "indices": [[kind, k] for kind, k, _ in horner[logn]]}
+            del x, ev, cev
+
+        # the NTT section, timed
+        sums, secs["bench_ntt"] = _timed(lambda: bench.bench_ntt(detail, DEV))
+
+        # a batch of 16 transfers (the bench's inputs), proofs 0 and 15 verified
+        reg = load_example("simple_token")
+        if keys is None:
+            keys = pipeline.synthesize_keys(reg, "token.aleo", "transfer", srs=srs, cache=False)
+        syns = [pipeline.synthesize_and_check(
+            keys, reg, bench._transfer_inputs(100 + i, SENDER, RECEIVER), SENDER, lambda: 11)
+            for i in range(BENCH_PROOFS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        proofs, secs["batch16"] = _timed(lambda: batch_mod.prove_batch(
+            keys.index, [s.cs for s in syns], rng=random.Random(SEED)))
+        peak16 = torch.cuda.max_memory_allocated()
+        assert len(proofs) == BENCH_PROOFS
+        t1 = time.time()
+        for i in (0, BENCH_PROOFS - 1):
+            assert verify(keys.vk, syns[i].public_inputs, proofs[i]), \
+                f"proof {i} of the batch of {BENCH_PROOFS} does not verify"
+        assert not verify(keys.vk, syns[1].public_inputs, proofs[0]), \
+            "proof 0 was accepted under proof 1's public inputs"
+        verify16_s = time.time() - t1
+
+        for logn in BENCH_NTT_LOGNS:
+            for (kind, k, fut), got_k in zip(horner[logn], on_card[logn]):
+                assert got_k == fut.result(), f"{kind} at 2^{logn}, index {k}: not Horner's"
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    launches = all_launches()
+    for kname in AFFINE_KERNELS + PROJECTIVE_KERNELS + ("g1_normalize", "fmat_reduce"):
+        assert launches[kname] > 0, f"{kname} was never launched in the bench phase"
+    say({"phase": "bench", "fmat_reduce_2p22": k1, "rounds": rounds, "seconds_of": secs,
+         "ntt_checks": ntt, "ntt_checksums": sums, "msm_2e16_points_per_s": pps,
+         "batch16": {"seconds": secs["batch16"], "seconds_per_proof": secs["batch16"] / BENCH_PROOFS,
+                     "peak_device_bytes": peak16, "verify_seconds": verify16_s,
+                     "proofs_verified": 2},
+         "detail": detail, "launches": _nonzero(launches),
+         "seconds": round(time.time() - t0, 3)})
+    return launches
+
+
 def _load_tool(name):
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(name, os.path.join(here, "tools", name + ".py"))
@@ -2405,7 +2655,7 @@ def main(argv):
     kres = phase_kernels() if "kernels" in want else None
     srs = None
     if want & {"msm", "micro", "transfer", "batch", "fixed_base", "limbs_last", "mesh", "sdk",
-               "serve"}:
+               "serve", "bench"}:
         t0 = time.time()
         # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
         # (micro needs fewer and takes the same one); cached where the
@@ -2425,6 +2675,7 @@ def main(argv):
         launches, keys, single_s = phase_transfer(srs)
     batch_launches = phase_batch(srs, keys, single_s) if "batch" in want else None
     fb_launches = phase_fixed_base(srs, keys) if "fixed_base" in want else None
+    bench_launches = phase_bench(srs, keys) if "bench" in want else None
     tool_launches = phase_tools() if "tools" in want else None
     ll_launches = phase_limbs_last(srs) if "limbs_last" in want else None
     if "record_scan" in want:
@@ -2435,7 +2686,8 @@ def main(argv):
     if "scan_widths" in want:
         phase_scan_widths()
     if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches,
-                    fb_launches, ll_launches, mesh_launches, sdk_launches, serve_launches):
+                    fb_launches, ll_launches, mesh_launches, sdk_launches, serve_launches,
+                    bench_launches):
         # `launches` is a kernel's count on the main path that runs it: the
         # transfer proof (K1-K12 and the inversion tree), to_affine (fq_mul),
         # the two scripts (the product kernels); `launches_batch` its count
@@ -2443,7 +2695,8 @@ def main(argv):
         # with the fixed-base MSM on ("auto") that builds its tables;
         # `launches_limbs_last` in the limbs_last phase; `launches_mesh` in
         # the mesh phase's sharded calls; `launches_sdk` in the sdk phase;
-        # `launches_serve` in the serve phase
+        # `launches_serve` in the serve phase; `launches_bench` in the bench
+        # phase (after its check of fmat_reduce against the plain version)
         on_path = {**launches, "fq_mul": to_affine_launches["fq_mul"],
                    **{k: tool_launches[k] for k in PROTO_KERNELS}}
         say({"kernels": [
@@ -2455,6 +2708,7 @@ def main(argv):
              "launches_mesh": mesh_launches.get(name, 0),
              "launches_sdk": sdk_launches.get(name, 0),
              "launches_serve": serve_launches.get(name, 0),
+             "launches_bench": bench_launches.get(name, 0),
              "max_abs_err": r["max_abs_err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None}

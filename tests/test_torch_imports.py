@@ -43,6 +43,7 @@ def test_importing_the_port_does_not_load_jax():
         for p in _port_files()
         if p.name != "__init__.py" and p.is_relative_to(ROOT / "aleo_tpu_torch")
     ]
+    assert "aleo_tpu_torch.bench" in mods and "aleo_tpu_torch.graft_entry" in mods
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -61,7 +62,7 @@ def test_importing_the_port_does_not_load_jax():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     import torch
 
-    from aleo_tpu_torch import graft_entry
+    from aleo_tpu_torch import bench, graft_entry
     from aleo_tpu_torch.curves import edwards_device, g1, g1_affine, g1_fused
     from aleo_tpu_torch.fields import fr_lf
     from aleo_tpu_torch.fields.modring import FQ_RING, FR_RING
@@ -111,6 +112,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: mesh.init_distributed(),
         lambda: mesh.make_mesh(),
         lambda: graft_entry.entry(),
+        lambda: bench.main(),
+        lambda: bench.bench_msm({}),
+        lambda: bench._tiled_points(64),
         lambda: LocalAPIClient(Ledger()),
         lambda: HttpAPIClient("http://localhost:3030"),
         lambda: ProgramManager(None, private_key=PrivateKey(seed=1)),
