@@ -207,8 +207,24 @@ Phases, each printing one JSON line with its seconds:
             every lane equal; the rest of a record's probe is the same on
             both paths, so where these times cross is where the batch pays
 
+The JAX package's own outputs. tests/torch_vectors/jax_reference.json
+(written on the CPU by scripts/torch_make_jax_vectors.py, which runs the JAX
+package on this script's inputs and sizes) is read at the start: a missing
+file, or an entry whose inputs differ from this script's constants, fails
+the run. Held against it, byte for byte: the SRS's G1 powers (srs step), the
+transfer's verifying key, public inputs and proof in both MSM modes
+(transfer), the fixed-base `auto` proof (fixed_base), the four proofs of the
+batch in both modes (batch), the MatNTT
+transforms at 2^20 and 2^22, forward and coset, as digests of their
+canonical values and eight sampled values, and the 2^16 MSM (bench), and
+Poseidon's hash_batch over all 16384 rows at each rate (record_scan). Each of
+these phases' lines carries "jax_vectors": {entry: true}. Not held against
+it: the record scan's ECDH (the JAX ladder keeps F5 and corrupts the lanes
+around the planted point) and the serve phase (the JAX server and worker
+keep F3).
+
 It fails (non-zero exit, no result line) without CUDA, if the build fails,
-or if any phase fails. The last line of its output is
+if the vector file is missing or disagrees, or if any phase fails. The last line of its output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds. `bound_ms` is the larger of bytes / 3.35 TB/s (each input read once,
@@ -220,6 +236,7 @@ has half as many int32 lanes as float32 lanes.
 """
 
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
@@ -275,7 +292,7 @@ from aleo_tpu_torch.reference.field import FR, fr_root_of_unity
 from aleo_tpu_torch.reference.msm import msm_pippenger_jac
 from aleo_tpu_torch.snark import batch as batch_mod
 from aleo_tpu_torch.snark import pipeline
-from aleo_tpu_torch.snark.serialize import proof_from_bytes, proof_to_bytes
+from aleo_tpu_torch.snark.serialize import point_to_bytes, proof_from_bytes, proof_to_bytes
 from aleo_tpu_torch.snark.snarkvm_bytes import UniversalSrsBlob
 from aleo_tpu_torch.sdk import api_client, encryptor, wire
 from aleo_tpu_torch.sdk.account import PrivateKey
@@ -289,6 +306,8 @@ from aleo_tpu_torch.snark.verifier import verify
 from aleo_tpu_torch.utils import profiling as prof
 
 DEV = torch.device("cuda")
+VECTORS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "tests", "torch_vectors", "jax_reference.json")
 Q, R = params.Q, params.R
 L = params.FQ_LIMBS
 SEED = 20240229
@@ -366,6 +385,9 @@ BENCH_NTT_LOGNS = (20, 22)
 BENCH_STAGE = 1 << 22
 BENCH_PROOFS = 16
 FR_MONT_INV = pow(1 << (16 * params.FR_LIMBS), -1, R)   # 2^-256 mod r
+SRS_SEED, SRS_DEGREE = b"aleo-tpu-srs", 32769
+TRANSFER_AMOUNT, RNG_NONCE = 120, 11
+NTT_SAMPLES = 8
 OPT_IN_PHASES = {"scan_widths"}
 PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools",
           "limbs_last", "record_scan", "mesh", "sdk", "serve", "bench"}
@@ -486,6 +508,68 @@ def cuda_ms(fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def int_bytes(values) -> bytes:
+    """Canonical integers as 32 bytes little-endian each, in order."""
+    return b"".join(int(v).to_bytes(32, "little") for v in values)
+
+
+def fr_digest(t):
+    """sha256 of an (16, n) limbs-first Fr tensor's values as canonical
+    integers, 32 bytes little-endian each, in index order: out of Montgomery
+    form and normalized on the card, then the 16-bit limbs' bytes (numpy,
+    no Python integers)."""
+    v = lf.normalize(lf.from_mont(t)).cpu().numpy()
+    return sha256(v.T.astype("<u2").tobytes())
+
+
+# the JAX package's outputs (tests/torch_vectors/jax_reference.json), read by
+# main before any phase runs
+JAX = {}
+
+
+def load_vectors():
+    """The vector file's entries -> dict. Fails when the file is missing, an
+    entry is missing, or an entry's inputs differ from this script's
+    constants."""
+    with open(VECTORS) as f:
+        entries = json.load(f)["entries"]
+    want = {
+        "srs": {"seed": SRS_SEED.decode(), "max_degree": SRS_DEGREE},
+        "transfer": {"example": "simple_token", "program": "token.aleo", "function": "transfer",
+                     "sender": SENDER, "receiver": RECEIVER, "record_amount": 500,
+                     "record_nonce": 7, "amount": TRANSFER_AMOUNT, "rng_nonce": RNG_NONCE,
+                     "rng_seed": SEED},
+        "msm": {"n": BENCH_MSM_N, "scalar_seed": 0xBE7C, "tile": bench.TILE},
+    }
+    want["batch"] = {**want["transfer"], "amount": None,
+                     "amounts": [100 + i for i in range(BATCH_K)]}
+    for name in ("srs", "transfer", "batch", "ntt", "msm", "poseidon"):
+        assert name in entries, f"{VECTORS}: no entry {name!r}"
+    for name, inputs in want.items():
+        assert entries[name]["inputs"] == inputs, \
+            f"{VECTORS}: the inputs of {name!r} differ from this script's"
+    ntt = entries["ntt"]
+    assert sorted(k for k in ntt if k != "seconds") == \
+        sorted(str(1 << logn) for logn in BENCH_NTT_LOGNS), sorted(ntt)
+    for logn in BENCH_NTT_LOGNS:
+        got = {k: v for k, v in ntt[str(1 << logn)]["inputs"].items() if k != "input_sha256"}
+        assert got == {"logn": logn, "seed": SEED + logn, "shift": params.FR_GENERATOR}, got
+    got = {k: v for k, v in entries["poseidon"]["inputs"].items() if k != "rows_sha256"}
+    assert got == {"seed": SEED + 11, "rows": RS_ROWS, "inputs_per_row": RS_INPUTS,
+                   "rates": [2, 4, 8]}, got
+    return entries
+
+
+def held(name, ok, what):
+    """Fails the run unless `ok`: `what` of the port differs from entry
+    `name` of the JAX package's outputs."""
+    assert ok, f"{what} differs from the JAX package's ({VECTORS}, entry {name!r})"
 
 
 # ---------------------------------------------------------------------------
@@ -1423,6 +1507,7 @@ SENDER, RECEIVER = 123456789, 987654321
 
 
 def transfer_inputs(amount):
+    """token.aleo/transfer's inputs (the vector file's transfer entry)."""
     rec = Record(
         "token.aleo", "token", owner=SENDER, gates=0,
         entries={"amount": Value("u64", 500)}, nonce=7,
@@ -1435,7 +1520,7 @@ def phase_transfer(srs):
     t0 = time.time()
     reg = load_example("simple_token")
     sender = SENDER
-    inputs = transfer_inputs(120)
+    inputs = transfer_inputs(TRANSFER_AMOUNT)
 
     reset_launches()                      # every kernel's count to 0
     prof.reset()
@@ -1447,7 +1532,7 @@ def phase_transfer(srs):
     keys_launches = all_launches()
     t1 = time.time()
     ep = pipeline.prove_execution(keys, reg, inputs, caller=sender,
-                                  rng_nonce=lambda: 11, rng=random.Random(SEED))
+                                  rng_nonce=lambda: RNG_NONCE, rng=random.Random(SEED))
     torch.cuda.synchronize()
     prove_s = time.time() - t1
     t1 = time.time()
@@ -1483,7 +1568,7 @@ def phase_transfer(srs):
         prof.enable()
         t1 = time.time()
         ep_proj = pipeline.prove_execution(keys, reg, inputs, caller=sender,
-                                           rng_nonce=lambda: 11, rng=random.Random(SEED))
+                                           rng_nonce=lambda: RNG_NONCE, rng=random.Random(SEED))
         torch.cuda.synchronize()
         proj_prove_s = time.time() - t1
         proj_launches = all_launches()    # the projective path's counts
@@ -1493,9 +1578,23 @@ def phase_transfer(srs):
         config.MSM_AFFINE_MODE = "1"
     assert pipeline.verify_execution(keys, ep_proj, debug=True), \
         "projective transfer proof does not verify"
+    # the key, the public inputs and both proofs against the JAX package's
+    # (equal bytes in both modes imply the two proofs' equality)
+    t1 = time.time()
+    want = JAX["transfer"]
+    vk = keys.vk
+    held("transfer", {"n": vk.n, "m": vk.m, "ell": vk.ell,
+                      "index_commitments": [point_to_bytes(p).hex()
+                                            for p in vk.index_commitments]} == want["vk"],
+         "the verifying key")
+    held("transfer", [str(v) for v in ep.public_inputs] == want["public_inputs"],
+         "the public inputs")
     dims = (keys.index.n, keys.index.m, keys.index.ell)
-    assert proof_to_bytes(ep_proj.proof, *dims) == proof_to_bytes(ep.proof, *dims), \
-        "the projective proof's bytes differ from the affine proof's"
+    held("transfer", proof_to_bytes(ep.proof, *dims).hex() == want["proof"],
+         "the batch-affine proof")
+    held("transfer", proof_to_bytes(ep_proj.proof, *dims).hex() == want["proof"],
+         "the projective proof")
+    vectors_s = time.time() - t1
     for k in PROJECTIVE_KERNELS + ("g1_normalize", "fmat_reduce"):
         assert proj_launches[k] > 0, f"{k} was never launched during the projective proof"
     for k in AFFINE_KERNELS:
@@ -1511,6 +1610,7 @@ def phase_transfer(srs):
          "stages": stages,
          "projective": {"prove_seconds": proj_prove_s, "launches_proof": proj_launches,
                         "stages": proj_stages, "bytes_equal": True},
+         "jax_vectors": {"transfer": True}, "jax_vectors_seconds": vectors_s,
          "peak_device_bytes": torch.cuda.max_memory_allocated(),
          "seconds": round(time.time() - t0, 3)})
     # each kernel's count on the path that runs it: the batch-affine main path
@@ -1550,7 +1650,7 @@ def phase_batch(srs, keys, single_s):
         keys = pipeline.synthesize_keys(reg, "token.aleo", "transfer", srs=srs, cache=False)
     assert (keys.index.n, keys.index.m) == (8192, 32768), (keys.index.n, keys.index.m)
     syns = [pipeline.synthesize_and_check(keys, reg, transfer_inputs(100 + i), SENDER,
-                                          lambda: 11) for i in range(BATCH_K_ONCE)]
+                                          lambda: RNG_NONCE) for i in range(BATCH_K_ONCE)]
     assert len({tuple(s.public_inputs) for s in syns}) == BATCH_K_ONCE
     cs4 = [s.cs for s in syns[:BATCH_K]]
     dims = (keys.index.n, keys.index.m, keys.index.ell)
@@ -1587,6 +1687,15 @@ def phase_batch(srs, keys, single_s):
     assert as_bytes(runs["projective"]["proofs"]) == as_bytes(runs["affine"]["proofs"]), \
         "the projective batch's bytes differ from the affine batch's"
     assert len(set(as_bytes(runs["affine"]["proofs"]))) == BATCH_K
+    # both modes' four proofs against the JAX package's prove_batch
+    t2 = time.time()
+    want = JAX["batch"]["proofs"]
+    held("batch", [[str(v) for v in s.public_inputs] for s in syns[:BATCH_K]]
+         == [w["public_inputs"] for w in want], "the public inputs")
+    for name, r in runs.items():
+        held("batch", [b.hex() for b in as_bytes(r["proofs"])] == [w["proof"] for w in want],
+             f"the {name} batch's proofs")
+    vectors_s = time.time() - t2
     # k = 8 under the same seed: its first masks are drawn for eight proofs,
     # so these are other proofs than the four above; the first and the last
     # are verified (a verification is seconds of host pairing work)
@@ -1598,6 +1707,7 @@ def phase_batch(srs, keys, single_s):
         del r["proofs"]
     say({"phase": "batch", "k": BATCH_K, "n": keys.index.n, "m": keys.index.m,
          "single_prove_seconds": single_s, **runs, "bytes_equal": True,
+         "jax_vectors": {"batch": True}, "jax_vectors_seconds": vectors_s,
          "k8": {"k": BATCH_K_ONCE, "mode": faster, "seconds": seconds8,
                 "seconds_per_proof": seconds8 / BATCH_K_ONCE, "launches": launches8,
                 "batched_transforms": ntts8, "peak_device_bytes": peak8},
@@ -1621,8 +1731,8 @@ def _prove_transfer_timed(keys, reg):
     prof.enable()
     try:
         ep, seconds = _timed(lambda: pipeline.prove_execution(
-            keys, reg, transfer_inputs(120), caller=SENDER, rng_nonce=lambda: 11,
-            rng=random.Random(SEED)))
+            keys, reg, transfer_inputs(TRANSFER_AMOUNT), caller=SENDER,
+            rng_nonce=lambda: RNG_NONCE, rng=random.Random(SEED)))
         return ep, seconds, all_launches(), prof.report()
     finally:
         prof.enable(False)
@@ -1780,8 +1890,10 @@ def phase_fixed_base(srs, keys):
             config.FIXED_BASE_MODE = "auto"
             for run in ("tables_built", "tables_cached"):
                 ep, secs, launches, stages = _prove_transfer_timed(keys, reg)
-                agrees[f"auto_proof_{run}_bytes_equal"] = proof_to_bytes(ep.proof, *dims) \
-                    == default_bytes
+                auto_bytes = proof_to_bytes(ep.proof, *dims)
+                agrees[f"auto_proof_{run}_bytes_equal"] = auto_bytes == default_bytes
+                agrees[f"auto_proof_{run}_is_the_jax_proof"] = \
+                    auto_bytes.hex() == JAX["transfer"]["proof"]
                 auto[run] = {"prove_seconds": secs, "launches": launches,
                              "kzg_commit_seconds": stages["kzg/commit"]["seconds"],
                              "stages": stages}
@@ -1804,6 +1916,8 @@ def phase_fixed_base(srs, keys):
     agrees["f1_shape_agrees"] = (agrees["f1_fixed_equals_variable"]
                                  and agrees["f1_member0_equals_host_pippenger"])
     say({"phase": "fixed_base", "f1_shape_agrees": agrees["f1_shape_agrees"],
+         "jax_vectors": {"transfer": agrees["auto_proof_tables_built_is_the_jax_proof"]
+                         and agrees["auto_proof_tables_cached_is_the_jax_proof"]},
          "agrees": agrees, "table": table, "msm": msms, "f1": f1, "proof": proof,
          "seconds": round(time.time() - t0, 3)})
     failed = [k for k, v in agrees.items() if not v]
@@ -2004,12 +2118,21 @@ def phase_record_scan():
     rng = random.Random(SEED + 11)
     reset_launches()
     res = {}
+    vectors_s = 0.0
     # -- Poseidon at rates 2, 4, 8: hash_batch over B rows of 4, permute
     for rate in (2, 4, 8):
         rows = [[rng.randrange(R) for _ in range(RS_INPUTS)] for _ in range(RS_ROWS)]
+        want = JAX["poseidon"]
+        held("poseidon", sha256(int_bytes(v for r in rows for v in r))
+             == want["inputs"]["rows_sha256"][str(rate)], f"the rows at rate {rate}")
         enc = FR_RING.encode([v for r in rows for v in r], device=DEV).reshape(
             RS_ROWS, RS_INPUTS, FR_RING.L)
         out, hs = _timed(lambda: poseidon.hash_batch(rate, enc))
+        # every row's hash against the JAX package's hash_batch
+        t1 = time.time()
+        held("poseidon", sha256(int_bytes(FR_RING.decode(out).tolist())) == want["sha256"][str(rate)],
+             f"hash_batch at rate {rate} over {RS_ROWS} rows")
+        vectors_s += time.time() - t1
         idx = _sample(rng, RS_ROWS, RS_HASH_CHECKED)
         assert FR_RING.decode(out[idx]).tolist() == [ref_poseidon.hash_psd(rate, rows[i]) for i in idx], \
             f"hash_batch at rate {rate} wrong"
@@ -2047,6 +2170,7 @@ def phase_record_scan():
                    "launches_per_step": step_launches}
     torch.cuda.synchronize()
     say({"phase": "record_scan", "rows": RS_ROWS, **res,
+         "jax_vectors": {"poseidon": True}, "jax_vectors_seconds": vectors_s,
          "launches": _nonzero(all_launches()), "seconds": round(time.time() - t0, 3)})
 
 
@@ -2468,6 +2592,7 @@ def phase_bench(srs, keys):
     assert config.MSM_AFFINE_MODE == "1" and threshold == 1 << 14
     modes = (("1", "affine"), ("0", "projective"))
     rounds, secs, ntt, on_card = {}, {}, {}, {}
+    vectors_s = 0.0
     pool = ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
     try:
         # the host's side, in worker processes while the card works: Horner
@@ -2524,6 +2649,7 @@ def phase_bench(srs, keys):
         del table, sc
         for key in ("msm_2e16_affine", "msm_2e16_projective"):
             assert got[key] == want["msm"].result(), f"{key} disagrees with the tiled oracle"
+            held("msm", point_to_bytes(got[key]).hex() == JAX["msm"]["point"], key)
         batch_want = [want[f"batch_{i}"].result() for i in range(BENCH_MSM_K)]
         assert got["batch"] == got["singles"] == batch_want, \
             "msm_batch_host at k = 4 x 2^16 disagrees with msm_fast_host or the oracle"
@@ -2536,6 +2662,7 @@ def phase_bench(srs, keys):
         (pps, out, outs), rounds["bench_msm"], secs["bench_msm"] = _rounds_of(
             lambda: bench.bench_msm(detail, DEV))
         assert out == want["msm"].result() and outs == batch_want, "bench_msm's points"
+        held("msm", point_to_bytes(out).hex() == JAX["msm"]["point"], "bench_msm's point")
         (total, parts), rounds["bench_msm_2e24"], secs["bench_msm_2e24"] = _rounds_of(
             lambda: bench.bench_msm_2e24(detail, DEV))
         for i, part in enumerate(parts):
@@ -2551,11 +2678,24 @@ def phase_bench(srs, keys):
             x = torch.from_numpy(a.T.astype(np.int32)).contiguous().to(DEV)
             host_sum = sum(int(v) << (16 * k) for k, v in
                            enumerate(a.sum(axis=0, dtype=np.int64))) * FR_MONT_INV % R
+            jax_ntt = JAX["ntt"][str(n)]
+            held("ntt", sha256(a.tobytes()) == jax_ntt["inputs"]["input_sha256"],
+                 f"the transforms' input at 2^{logn}")
             del a
             before = fk.LAUNCHES["fmat_reduce"]
             ev, ev_s = _timed(lambda: dntt.ntt_lf(x))
             cev, cev_s = _timed(lambda: dntt.coset_ntt_lf(x, shift))
             assert fk.LAUNCHES["fmat_reduce"] > before, f"2^{logn} did not run MatNTT"
+            # every output value against the JAX package's ntt / coset_ntt
+            t1 = time.time()
+            for name, v in (("ntt", ev), ("coset_ntt", cev)):
+                jw = jax_ntt[name]
+                idx = [i for i, _ in jw["samples"]]
+                samples = [str(y) for y in lf.decode(v[:, idx])] == [y for _, y in jw["samples"]]
+                digest = fr_digest(v) == jw["sha256"]
+                held("ntt", samples and digest,
+                     f"MatNTT {name} at 2^{logn} (samples equal: {samples}, digest equal: {digest})")
+            vectors_s += time.time() - t1
             assert torch.equal(lf.normalize(dntt.intt_lf(ev)), x), f"round trip at 2^{logn}"
             assert torch.equal(lf.normalize(dntt.coset_intt_lf(cev, shift)), x), \
                 f"coset round trip at 2^{logn}"
@@ -2613,6 +2753,7 @@ def phase_bench(srs, keys):
     for kname in AFFINE_KERNELS + PROJECTIVE_KERNELS + ("g1_normalize", "fmat_reduce"):
         assert launches[kname] > 0, f"{kname} was never launched in the bench phase"
     say({"phase": "bench", "fmat_reduce_2p22": k1, "rounds": rounds, "seconds_of": secs,
+         "jax_vectors": {"ntt": True, "msm": True}, "jax_vectors_seconds": vectors_s,
          "ntt_checks": ntt, "ntt_checksums": sums, "msm_2e16_points_per_s": pps,
          "batch16": {"seconds": secs["batch16"], "seconds_per_proof": secs["batch16"] / BENCH_PROOFS,
                      "peak_device_bytes": peak16, "verify_seconds": verify16_s,
@@ -2651,6 +2792,7 @@ def main(argv):
     want = set(argv) or set(PHASES)
     if want - PHASES - OPT_IN_PHASES:
         sys.exit(f"chip_smoke: unknown phase {sorted(want - PHASES - OPT_IN_PHASES)}")
+    JAX.update(load_vectors())
     card = phase_device()
     kres = phase_kernels() if "kernels" in want else None
     srs = None
@@ -2660,9 +2802,19 @@ def main(argv):
         # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
         # (micro needs fewer and takes the same one); cached where the
         # pipeline's own key synthesis (phases sdk and serve) looks for it
-        deg = 32769 if want - {"micro", "kernels", "matntt", "tools", "record_scan"} else 8193
-        srs = Srs.load_or_generate(deg, device=DEV)
-        say({"phase": "srs", "powers": deg + 1, "seconds": round(time.time() - t0, 3)})
+        full = bool(want - {"micro", "kernels", "matntt", "tools", "record_scan"})
+        deg = SRS_DEGREE if full else 8193
+        srs = Srs.load_or_generate(deg, seed=SRS_SEED, device=DEV)
+        held_srs = {}
+        if full:
+            # the G1 powers against the JAX package's SRS, by digest
+            t1 = time.time()
+            digest = hashlib.sha256()
+            for p in srs.host_affine():
+                digest.update(point_to_bytes(p))
+            held("srs", digest.hexdigest() == JAX["srs"]["g1_powers_sha256"], "the SRS")
+            held_srs = {"jax_vectors": {"srs": True}, "jax_vectors_seconds": time.time() - t1}
+        say({"phase": "srs", "powers": deg + 1, **held_srs, "seconds": round(time.time() - t0, 3)})
     to_affine_launches = None
     if "msm" in want:
         to_affine_launches = phase_msm(srs)

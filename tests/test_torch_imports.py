@@ -5,6 +5,7 @@ without one."""
 import ast
 import importlib.util
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -12,12 +13,15 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "aleo_tpu")
+# the one script beside the port that runs the JAX package: it writes the
+# vector file chip_smoke.py reads (tests/torch_vectors/jax_reference.json)
+BRIDGE = ROOT / "scripts" / "torch_make_jax_vectors.py"
 
 
 def _port_files():
     files = sorted((ROOT / "aleo_tpu_torch").rglob("*.py"))
     scripts = sorted((ROOT / "scripts").glob("torch_*.py")) + sorted((ROOT / "tools").glob("torch_*.py"))
-    return files + scripts + [ROOT / "chip_smoke.py"]
+    return files + [p for p in scripts if p != BRIDGE] + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path):
@@ -35,6 +39,32 @@ def test_file_imports_nothing_of_jax_or_the_jax_package(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_chip_smoke_source_names_neither_jax_nor_the_jax_package():
+    """chip_smoke.py cannot be imported without CUDA, so its text is read:
+    no import statement, import_module or __import__ names jax or aleo_tpu."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    pattern = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|aleo_tpu)\b"
+        r"|(?:import_module|__import__)\(\s*[\"'](?:jax|jaxlib|aleo_tpu)\b",
+        re.MULTILINE)
+    assert not pattern.findall(text)
+    assert re.search(r"^from aleo_tpu_torch import", text, re.MULTILINE)
+
+
+def _imports_the_jax_package(path):
+    return any(m.split(".")[0] in FORBIDDEN for m in _imports(path))
+
+
+def test_only_the_vector_generator_runs_the_jax_package():
+    """The generator imports the JAX package; nothing of the port imports
+    the generator, and it is the one such script beside the port."""
+    assert _imports_the_jax_package(BRIDGE)
+    for path in _port_files():
+        assert not any("torch_make_jax_vectors" in m for m in _imports(path)), path
+    beside = sorted((ROOT / "scripts").glob("torch_*.py")) + sorted((ROOT / "tools").glob("torch_*.py"))
+    assert [p for p in beside if _imports_the_jax_package(p)] == [BRIDGE]
 
 
 def test_importing_the_port_does_not_load_jax():
