@@ -5,6 +5,7 @@
     python3 chip_smoke.py kernels    # only the named phases (device always runs)
     python3 chip_smoke.py mesh sdk   # the multi-device layer and the host SDK
     python3 chip_smoke.py serve      # the dev server, the worker and the CLI
+    python3 chip_smoke.py credits    # credits.aleo's three shapes against the JAX package
     python3 chip_smoke.py bench      # aleo_tpu_torch/bench.py's sizes, held first
     python3 chip_smoke.py scan_widths  # opt-in: the scan's two ECDH paths by width
 
@@ -82,6 +83,16 @@ Phases, each printing one JSON line with its seconds:
             (MSM_AFFINE_MODE "0"), counts set to 0 before and read after: it
             must verify, give the same bytes, and launch the g1 kernels and
             none of the batch-affine ones
+  credits   credits.aleo as the dev server, the worker and the CLI prove it,
+            at its three shapes: transfer_private (n = 8192, m = 32768), join
+            (4096, 32768: m/n = 8) and transfer_public (2048, 8192), keys
+            synthesized over the shared SRS, one proof each seeded as the
+            transfer's and verified, counts set to 0 before and read after;
+            join again through the projective MSM (counts set to 0 before and
+            read after), verified, and the join proof rejected under a public
+            input changed by 1; every verifying key, public input and proof
+            (join in both modes) equal to the JAX package's; per function the
+            seconds of its keys, proof and verification and its (n, m)
   batch     the batch prover at full size: k = 4 token.aleo/transfer
             transitions with four different amounts (n = 8192, m = 32768)
             through prove_batch with one seeded rng, in the batch-affine mode
@@ -115,7 +126,8 @@ Phases, each printing one JSON line with its seconds:
             (m = |K| = 32768, n = |H| = 8192), over the same SRS: FR_RING
             and FQ_RING mul, add, sub, neg, batch_inv and inv at 2^16 lanes
             against host integers on 64 sampled lanes (zero lanes planted for
-            inv), every output lane canonical, FR_RING.mul timed beside
+            inv) and every lane against the JAX package's (by digest), every
+            output lane canonical, FR_RING.mul timed beside
             fr_lf.mul; coset_ntt / coset_intt at 2^16 (round trip, one
             evaluation against host Horner); eval_coeffs and
             divide_by_linear_via_domain at m coefficients (q(x)(x - z) + y =
@@ -124,9 +136,11 @@ Phases, each printing one JSON line with its seconds:
             each checked at a random point; kzg.commit and commit_host of m
             coefficients equal to commit_lf; open_at and batch_open_at over
             4 polynomials of n coefficients verify, and fail on a tampered
-            y; a UniversalSrsBlob of 4096 powers through bytes and to_srs()
-            with no device lands on the card with the SRS's powers; the
-            kernels' launch counts of the phase
+            y; every output above (values by digest, points as bytes) equal
+            to the JAX package's, the inputs' digests checked first; a
+            UniversalSrsBlob of 4096 powers through bytes and to_srs() with no
+            device lands on the card with the SRS's powers; the kernels'
+            launch counts of the phase
   record_scan  a wallet's record scan (upstream:rust/src/api/blocking.rs:
             261-318, encryptor.rs:47,66): Poseidon hash_batch at rates 2, 4
             and 8 over 16384 rows of 4 inputs and permute at each rate, 32
@@ -135,7 +149,8 @@ Phases, each printing one JSON line with its seconds:
             random points) with one point off the curve planted among them,
             built so that the ladder's second step meets a zero denominator
             (F5; a 250-bit view scalar with its top two bits set), 16 sampled
-            lanes and the planted one against the host ladder; the ladder's
+            lanes and the planted one against the host ladder, the 16383
+            on-curve lanes against the JAX package's ladder; the ladder's
             steps, its batch_inv readbacks, and the CUDA launches of one
             ladder step from torch.profiler
   mesh      parallel/mesh.py in a world of one under NCCL, mesh (1, 1) (one
@@ -213,15 +228,17 @@ package on this script's inputs and sizes) is read at the start: a missing
 file, or an entry whose inputs differ from this script's constants, fails
 the run. Held against it, byte for byte: the SRS's G1 powers (srs step), the
 transfer's verifying key, public inputs and proof in both MSM modes
-(transfer), the fixed-base `auto` proof (fixed_base), the four proofs of the
-batch in both modes (batch), the MatNTT
+(transfer), the three credits.aleo functions' keys, public inputs and proofs
+(credits; join in both modes), the fixed-base `auto` proof (fixed_base), the
+four proofs of the batch in both modes (batch), the MatNTT
 transforms at 2^20 and 2^22, forward and coset, as digests of their
-canonical values and eight sampled values, and the 2^16 MSM (bench), and
-Poseidon's hash_batch over all 16384 rows at each rate (record_scan). Each of
-these phases' lines carries "jax_vectors": {entry: true}. Not held against
-it: the record scan's ECDH (the JAX ladder keeps F5 and corrupts the lanes
-around the planted point) and the serve phase (the JAX server and worker
-keep F3).
+canonical values and eight sampled values, and the 2^16 MSM (bench),
+Poseidon's hash_batch over all 16384 rows at each rate and the ECDH over the
+16383 on-curve points (record_scan; the JAX ladder gets no off-curve point,
+so F5, which it keeps, does not show), and every output of the limbs-last
+API (limbs_last). Each of these phases' lines carries "jax_vectors": {entry:
+true}. Not held against it: the serve phase (the JAX server and worker keep
+F3), the k = 8 and k = 16 batches, the 2^24 MSM, mesh and sdk.
 
 It fails (non-zero exit, no result line) without CUDA, if the build fails,
 if the vector file is missing or disagrees, or if any phase fails. The last line of its output is
@@ -297,6 +314,7 @@ from aleo_tpu_torch.snark.snarkvm_bytes import UniversalSrsBlob
 from aleo_tpu_torch.sdk import api_client, encryptor, wire
 from aleo_tpu_torch.sdk.account import PrivateKey
 from aleo_tpu_torch.sdk.api_client import ApiError, HttpAPIClient, LocalAPIClient
+from aleo_tpu_torch.sdk.credits import registry_with_credits
 from aleo_tpu_torch.sdk.dev_server import DevServer
 from aleo_tpu_torch.sdk.development_client import DevelopmentClient
 from aleo_tpu_torch.sdk.ledger import Ledger
@@ -363,9 +381,10 @@ SAMPLE = 64
 LL_LANES, LL_M, LL_N = 1 << 16, 32768, 8192
 LL_MUL, LL_VANISH, LL_OPEN, LL_SRS_POWERS = 16384, 40960, 4, 4096
 # phase record_scan: B rows of 4 record fields hashed, 32 checked; the ECDH
-# over 16384 ephemeral points, 16 checked
+# over 16384 ephemeral points, 16 checked against the host, every on-curve
+# lane against the JAX package's ladder
 RS_ROWS, RS_INPUTS, RS_HASH_CHECKED = 16384, 4, 32
-RS_POINTS, RS_ECDH_CHECKED = 16384, 16
+RS_POINTS, RS_ECDH_CHECKED, RS_ECDH_LANES = 16384, 16, 16383
 # phase mesh: the sharded MSM over a transfer proof's m points, the sharded
 # NTT at 2^17 as 256 x 512; phase sdk: the genesis records of the wallet scan
 MESH_POINTS, MESH_NTT = 32768, (256, 512)
@@ -387,10 +406,23 @@ BENCH_PROOFS = 16
 FR_MONT_INV = pow(1 << (16 * params.FR_LIMBS), -1, R)   # 2^-256 mod r
 SRS_SEED, SRS_DEGREE = b"aleo-tpu-srs", 32769
 TRANSFER_AMOUNT, RNG_NONCE = 120, 11
+SENDER, RECEIVER = 123456789, 987654321
+# phase credits: three credits.aleo functions, one of each (n, m) that the
+# dev server, the worker and the CLI prove, owned and called by the
+# transfer's sender; records as [microcredits, nonce] (the vector file's
+# credits entry)
+CREDITS = {"program": "credits.aleo", "caller": SENDER, "rng_nonce": RNG_NONCE,
+           "rng_seed": SEED,
+           "functions": {
+               "transfer_private": {"n": 8192, "m": 32768, "records": [[1_000_000, 7]],
+                                    "receiver": RECEIVER, "amount": 250_000},
+               "join": {"n": 4096, "m": 32768, "records": [[300_000, 7], [200_000, 8]]},
+               "transfer_public": {"n": 2048, "m": 8192,
+                                   "receiver": RECEIVER, "amount": 50_000}}}
 NTT_SAMPLES = 8
 OPT_IN_PHASES = {"scan_widths"}
-PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "batch", "fixed_base", "tools",
-          "limbs_last", "record_scan", "mesh", "sdk", "serve", "bench"}
+PHASES = {"kernels", "msm", "matntt", "micro", "transfer", "credits", "batch", "fixed_base",
+          "tools", "limbs_last", "record_scan", "mesh", "sdk", "serve", "bench"}
 
 _G1, _FMAT = "aleo_tpu_torch/csrc/g1_affine.cu", "aleo_tpu_torch/csrc/fmat.cu"
 _G1F = "aleo_tpu_torch/csrc/g1_fused.cu"
@@ -514,9 +546,9 @@ def sha256(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
-def int_bytes(values) -> bytes:
-    """Canonical integers as 32 bytes little-endian each, in order."""
-    return b"".join(int(v).to_bytes(32, "little") for v in values)
+def int_bytes(values, width: int = 32) -> bytes:
+    """Canonical integers as `width` bytes little-endian each, in order."""
+    return b"".join(int(v).to_bytes(width, "little") for v in values)
 
 
 def fr_digest(t):
@@ -549,7 +581,9 @@ def load_vectors():
     }
     want["batch"] = {**want["transfer"], "amount": None,
                      "amounts": [100 + i for i in range(BATCH_K)]}
-    for name in ("srs", "transfer", "batch", "ntt", "msm", "poseidon"):
+    want["credits"] = CREDITS
+    for name in ("srs", "transfer", "batch", "ntt", "msm", "poseidon", "credits", "ecdh",
+                 "limbs_last"):
         assert name in entries, f"{VECTORS}: no entry {name!r}"
     for name, inputs in want.items():
         assert entries[name]["inputs"] == inputs, \
@@ -563,6 +597,14 @@ def load_vectors():
     got = {k: v for k, v in entries["poseidon"]["inputs"].items() if k != "rows_sha256"}
     assert got == {"seed": SEED + 11, "rows": RS_ROWS, "inputs_per_row": RS_INPUTS,
                    "rates": [2, 4, 8]}, got
+    # the record scan's ECDH: the planted lane and the inputs' digest are
+    # held against the phase's draws
+    got = {k: v for k, v in entries["ecdh"]["inputs"].items()
+           if k not in ("planted", "input_sha256")}
+    assert got == {"seed": SEED + 11, "points": RS_POINTS, "lanes": RS_ECDH_LANES}, got
+    got = {k: v for k, v in entries["limbs_last"]["inputs"].items() if k != "input_sha256"}
+    assert got == {"seed": SEED + 10, "lanes": LL_LANES, "sample": SAMPLE, "m": LL_M,
+                   "n": LL_N, "mul": LL_MUL, "vanish": LL_VANISH, "open": LL_OPEN}, got
     return entries
 
 
@@ -1503,9 +1545,6 @@ def phase_micro(srs):
          "verify_seconds": time.time() - t1, "seconds": round(time.time() - t0, 3)})
 
 
-SENDER, RECEIVER = 123456789, 987654321
-
-
 def transfer_inputs(amount):
     """token.aleo/transfer's inputs (the vector file's transfer entry)."""
     rec = Record(
@@ -1618,6 +1657,97 @@ def phase_transfer(srs):
     # of the projective pipeline
     path = {**launches, **{k: proj_launches[k] for k in PROJECTIVE_KERNELS}}
     return path, keys, {"affine": prove_s, "projective": proj_prove_s}
+
+
+def credits_inputs(fn):
+    """One credits.aleo function's inputs (the vector file's credits entry):
+    its records, owned by the caller, then the receiver and the amount where
+    it takes them."""
+    spec = CREDITS["functions"][fn]
+    out = [Record("credits.aleo", "credits", owner=CREDITS["caller"], gates=0,
+                  entries={"microcredits": Value("u64", mc)}, nonce=nonce)
+           for mc, nonce in spec.get("records", [])]
+    if "receiver" in spec:
+        out.append(Value("address", spec["receiver"]))
+    if "amount" in spec:
+        out.append(Value("u64", spec["amount"]))
+    return out
+
+
+def _prove_credits(keys, reg, fn):
+    return pipeline.prove_execution(keys, reg, credits_inputs(fn), caller=CREDITS["caller"],
+                                    rng_nonce=lambda: CREDITS["rng_nonce"],
+                                    rng=random.Random(CREDITS["rng_seed"]))
+
+
+def phase_credits(srs):
+    """credits.aleo at its three shapes, as the dev server, the worker and
+    the CLI prove it, held against the JAX package's keys and proofs."""
+    t0 = time.time()
+    reg = registry_with_credits()
+    res, keys_of, eps = {}, {}, {}
+    reset_launches()                      # every kernel's count to 0
+    for fn, spec in CREDITS["functions"].items():
+        keys, keys_s = _timed(lambda: pipeline.synthesize_keys(
+            reg, CREDITS["program"], fn, srs=srs, cache=False))
+        assert (keys.index.n, keys.index.m) == (spec["n"], spec["m"]), \
+            (fn, keys.index.n, keys.index.m)
+        ep, prove_s = _timed(lambda: _prove_credits(keys, reg, fn))
+        ok, verify_s = _timed(lambda: pipeline.verify_execution(keys, ep, debug=True))
+        assert ok, f"credits.aleo/{fn} proof does not verify"
+        keys_of[fn], eps[fn] = keys, ep
+        res[fn] = {"n": keys.index.n, "m": keys.index.m, "ell": keys.index.ell,
+                   "constraints": keys.constraint_counts["total"], "keys_seconds": keys_s,
+                   "prove_seconds": prove_s, "verify_seconds": verify_s}
+    launches = all_launches()             # keys, proofs and verifications
+    for k in AFFINE_KERNELS + ("g1_normalize", "fmat_reduce"):
+        assert launches[k] > 0, f"{k} was never launched by the credits proofs"
+    for k in PROJECTIVE_KERNELS:
+        assert launches[k] == 0, f"{k} was launched by the batch-affine credits proofs"
+
+    # join (m/n = 8) again through the projective MSM
+    keys = keys_of["join"]
+    assert config.MSM_AFFINE_MODE == "1"
+    config.MSM_AFFINE_MODE = "0"
+    try:
+        reset_launches()
+        ep_proj, proj_s = _timed(lambda: _prove_credits(keys, reg, "join"))
+        proj_launches = all_launches()
+    finally:
+        config.MSM_AFFINE_MODE = "1"
+    assert pipeline.verify_execution(keys, ep_proj, debug=True), \
+        "projective join proof does not verify"
+    for k in PROJECTIVE_KERNELS + ("g1_normalize", "fmat_reduce"):
+        assert proj_launches[k] > 0, f"{k} was never launched during the projective join"
+    for k in AFFINE_KERNELS:
+        assert proj_launches[k] == 0, f"{k} was launched during the projective join"
+    bad = list(eps["join"].public_inputs)
+    bad[2] = (bad[2] + 1) % R
+    assert not verify(keys.vk, bad, eps["join"].proof), "tampered join input was accepted"
+    res["join"]["projective"] = {"prove_seconds": proj_s, "launches": _nonzero(proj_launches)}
+
+    # every key, public input and proof against the JAX package's
+    t1 = time.time()
+    for fn, want in JAX["credits"]["functions"].items():
+        vk, ep = keys_of[fn].vk, eps[fn]
+        held("credits", {"n": vk.n, "m": vk.m, "ell": vk.ell,
+                         "index_commitments": [point_to_bytes(p).hex()
+                                               for p in vk.index_commitments]} == want["vk"],
+             f"{fn}'s verifying key")
+        held("credits", [str(v) for v in ep.public_inputs] == want["public_inputs"],
+             f"{fn}'s public inputs")
+        held("credits", proof_to_bytes(ep.proof, vk.n, vk.m, vk.ell).hex() == want["proof"],
+             f"{fn}'s batch-affine proof")
+    vk = keys_of["join"].vk
+    held("credits", proof_to_bytes(ep_proj.proof, vk.n, vk.m, vk.ell).hex()
+         == JAX["credits"]["functions"]["join"]["proof"], "join's projective proof")
+    vectors_s = time.time() - t1
+    say({"phase": "credits", **res,
+         "jax_vectors": {"credits": True}, "jax_vectors_seconds": vectors_s,
+         "launches": _nonzero(launches), "seconds": round(time.time() - t0, 3)})
+    # each kernel's count on the path that runs it: the batch-affine keys,
+    # proofs and verifications, and the projective join for its kernels
+    return {**launches, **{k: proj_launches[k] for k in PROJECTIVE_KERNELS}}
 
 
 def _prove_batch_timed(keys, cs_list):
@@ -1940,10 +2070,12 @@ def _canonical(ring, t):
     return torch.equal(lk.normalize(ring.limb_ring, lf_t), lf_t)
 
 
-def _ring_checks(ring, rng):
+def _ring_checks(ring, rng, vec):
     """mul, add, sub, neg, batch_inv, inv of one ring at LL_LANES lanes
-    against host integers on SAMPLE lanes; zero lanes planted for inv."""
-    p, n = ring.p, LL_LANES
+    against host integers on SAMPLE lanes; zero lanes planted for inv. The
+    digests of the inputs and of every output (canonical values, 2L bytes
+    each) go into `vec`, to be held against the JAX package's."""
+    p, n, width = ring.p, LL_LANES, 2 * ring.L
     xs = [rng.randrange(1, p) for _ in range(n)]
     ys = [rng.randrange(p) for _ in range(n)]
     xs[:4] = [1, p - 1, 2, p - 2]
@@ -1951,6 +2083,8 @@ def _ring_checks(ring, rng):
     zs = list(xs)
     for i in (5, n // 2, n - 1):
         zs[i] = 0
+    vec["inputs"][ring.name] = sha256(int_bytes(xs + ys + zs, width))
+    vec[ring.name] = {}
     a, b, z = (ring.encode(v, device=DEV) for v in (xs, ys, zs))
     idx = _sample(rng, n) + [0, 1, 2, 3, 5, n // 2, n - 1]
     want = {
@@ -1971,6 +2105,7 @@ def _ring_checks(ring, rng):
         vals = ring.decode(got[idx])
         assert [int(v) for v in vals] == [want[op](i) for i in idx], f"{ring.name}.{op} wrong"
         out[op + "_s"] = s
+        vec[ring.name][op] = sha256(int_bytes(ring.decode(got).tolist(), width))
     assert ring.decode(ring.inv(z)[[5, n // 2, n - 1]]).tolist() == [0, 0, 0]
     return out, a, b
 
@@ -1981,9 +2116,13 @@ def phase_limbs_last(srs):
     rng = random.Random(SEED + 10)
     reset_launches()
     res = {}
+    # digests of the inputs and outputs, held against the vector file's
+    # limbs_last entry at the end (the inputs first)
+    vec = {"inputs": {}}
+    fr_sha = lambda t: sha256(int_bytes(FR_RING.decode(t).tolist()))
     # -- ModRing, both rings; FR_RING.mul beside fr_lf.mul on the same values
-    res["Fq"] = _ring_checks(FQ_RING, rng)[0]
-    res["Fr"], a, b = _ring_checks(FR_RING, rng)
+    res["Fq"] = _ring_checks(FQ_RING, rng, vec)[0]
+    res["Fr"], a, b = _ring_checks(FR_RING, rng, vec)
     alf, blf = a.T.contiguous(), b.T.contiguous()
     assert torch.equal(FR_RING.mul(a, b), lf.normalize(lf.mul(alf, blf)).T)
     res["Fr"]["mul_ms"] = cuda_ms(lambda: FR_RING.mul(a, b), 10)
@@ -1992,8 +2131,10 @@ def phase_limbs_last(srs):
     # -- coset NTT at 2^16: round trip, one evaluation against host Horner
     shift = params.FR_GENERATOR
     coeffs = [rng.randrange(R) for _ in range(LL_LANES)]
+    vec["inputs"]["coeffs"] = sha256(int_bytes(coeffs))
     x = FR_RING.encode(coeffs, device=DEV)
     ev, res["coset_ntt_s"] = _timed(lambda: dntt.coset_ntt(x, shift))
+    vec["coset_ntt"] = fr_sha(ev)
     back, res["coset_intt_s"] = _timed(lambda: dntt.coset_intt(ev, shift))
     assert torch.equal(back, x), "coset_intt(coset_ntt(x)) != x"
     i = rng.randrange(LL_LANES)
@@ -2008,7 +2149,9 @@ def phase_limbs_last(srs):
     zd = FR_RING.const(z, device=DEV)
     y, res["eval_coeffs_s"] = _timed(lambda: pd.eval_coeffs(pdev, zd))
     assert FR_RING.decode(y) == rpoly.evaluate(pc, z), "eval_coeffs wrong"
+    vec["eval_coeffs"] = str(FR_RING.decode(y))
     (q, y2), res["divide_by_linear_s"] = _timed(lambda: pd.divide_by_linear_via_domain(pdev, zd))
+    vec["divide_by_linear"] = {"q": fr_sha(q), "y": str(FR_RING.decode(y2))}
     xr = rng.randrange(R)
     qv = rpoly.evaluate([int(v) for v in FR_RING.decode(q)], xr)
     assert (qv * (xr - z) + FR_RING.decode(y2) - rpoly.evaluate(pc, xr)) % R == 0, \
@@ -2018,14 +2161,17 @@ def phase_limbs_last(srs):
     ha, hb = coeffs[: LL_MUL], coeffs[LL_MUL : 2 * LL_MUL]
     prod, res["poly_mul_s"] = _timed(lambda: pd.poly_mul(x[:LL_MUL], x[LL_MUL : 2 * LL_MUL]))
     assert prod.shape == (2 * LL_MUL - 1, FR_RING.L)
+    vec["poly_mul"] = fr_sha(prod)
     xr = rng.randrange(R)
     assert rpoly.evaluate([int(v) for v in FR_RING.decode(prod)], xr) == \
         rpoly.evaluate(ha, xr) * rpoly.evaluate(hb, xr) % R, "poly_mul wrong"
 
     # -- divide_by_vanishing of 40960 coefficients by n = |H|
     vc = [rng.randrange(R) for _ in range(LL_VANISH)]
+    vec["inputs"]["vanish"] = sha256(int_bytes(vc))
     (vq, vr), res["divide_by_vanishing_s"] = _timed(
         lambda: pd.divide_by_vanishing(FR_RING.encode(vc, device=DEV), LL_N))
+    vec["divide_by_vanishing"] = {"q": fr_sha(vq), "r": fr_sha(vr)}
     xr = rng.randrange(R)
     lhs = (rpoly.evaluate([int(v) for v in FR_RING.decode(vq)], xr) * (pow(xr, LL_N, R) - 1)
            + rpoly.evaluate([int(v) for v in FR_RING.decode(vr)], xr)) % R
@@ -2035,13 +2181,17 @@ def phase_limbs_last(srs):
     (cm_dev, res["commit_s"]) = _timed(lambda: kzg.commit(srs, pdev))
     cm_host, res["commit_host_s"] = _timed(lambda: kzg.commit_host(srs, pdev))
     cm_lf, res["commit_lf_s"] = _timed(lambda: kzg.commit_lf(srs, pdev.T.contiguous()))
-    assert g1mod.decode_points(cm_dev)[0] == cm_host == cm_lf, "limbs-last commits disagree"
+    cm_pt = g1mod.decode_points(cm_dev)[0]
+    assert cm_pt == cm_host == cm_lf, "limbs-last commits disagree"
+    vec["commit"] = {"point": point_to_bytes(cm_pt).hex()}
 
     # -- open_at and batch_open_at over LL_OPEN polynomials of |H| coefficients
     polys_h = [[rng.randrange(R) for _ in range(LL_N)] for _ in range(LL_OPEN)]
+    vec["inputs"]["open"] = sha256(int_bytes(v for p_ in polys_h for v in p_))
     polys = [FR_RING.encode(v, device=DEV) for v in polys_h]
     (w, yo), res["open_at_s"] = _timed(lambda: kzg.open_at(srs, polys[0], zd))
     yv = FR_RING.decode(yo)
+    vec["open_at"] = {"w": point_to_bytes(w).hex(), "y": str(yv)}
     cm0 = kzg.commit_host(srs, polys[0])
     assert yv == rpoly.evaluate(polys_h[0], z)
     assert kzg.verify(srs, cm0, z, yv, w), "open_at does not verify"
@@ -2050,6 +2200,8 @@ def phase_limbs_last(srs):
     (wb, ys), res["batch_open_at_s"] = _timed(
         lambda: kzg.batch_open_at(srs, polys, zd, FR_RING.const(gamma, device=DEV)))
     ys = [FR_RING.decode(v) for v in ys]
+    vec["inputs"]["z_gamma"] = sha256(int_bytes([z, gamma]))
+    vec["batch_open_at"] = {"w": point_to_bytes(wb).hex(), "ys": [str(v) for v in ys]}
     cms = [cm0] + [kzg.commit_host(srs, p_) for p_ in polys[1:]]
     assert kzg.batch_verify(srs, cms, z, ys, gamma, wb), "batch_open_at does not verify"
     assert not kzg.batch_verify(srs, cms, z, [(ys[0] + 1) % R] + ys[1:], gamma, wb), \
@@ -2071,7 +2223,18 @@ def phase_limbs_last(srs):
     launches = _nonzero(all_launches())
     for kname in ("fmat_reduce", "fq_prepare", "fq_apply", "g1_double", "g1_add"):
         assert launches.get(kname, 0) > 0, f"{kname} was never launched by limbs_last"
+    # the inputs' digests first (a drift of the draws fails here), then
+    # every output against the JAX package's
+    t1 = time.time()
+    want = JAX["limbs_last"]
+    held("limbs_last", vec.pop("inputs") == want["inputs"]["input_sha256"], "the inputs")
+    for name, got in vec.items():
+        if isinstance(got, dict):
+            held("limbs_last", got == {k: want[name][k] for k in got}, name)
+        else:
+            held("limbs_last", got == want[name], name)
     say({"phase": "limbs_last", "lanes": LL_LANES, "m": LL_M, "n": LL_N, **res,
+         "jax_vectors": {"limbs_last": True}, "jax_vectors_seconds": time.time() - t1,
          "launches": launches, "seconds": round(time.time() - t0, 3)})
     return launches
 
@@ -2159,18 +2322,32 @@ def phase_record_scan():
         pts.append(edwards.add(pts[-1], Q))
     planted = rng.randrange(RS_POINTS)
     pts[planted] = _f5_point(rng)
+    want = JAX["ecdh"]
+    drawn = sha256(int_bytes([view] + [c for p in pts for c in p]))
+    held("ecdh", (planted, drawn) == (want["inputs"]["planted"], want["inputs"]["input_sha256"]),
+         "the view scalar and the points")
     xs, ys = ed.encode_points(pts, device=DEV)
     step_launches = _ladder_step_launches(xs, ys)
     got, es = _timed(lambda: ed.shared_secrets(view, pts))
     idx = sorted(set(_sample(rng, RS_POINTS, RS_ECDH_CHECKED)) | {planted})
     assert [got[i] for i in idx] == [edwards.mul(view, pts[i]) for i in idx], "shared_secrets wrong"
+    # every on-curve lane (all but the planted one) against the JAX
+    # package's ladder over the same lanes in the same order
+    t1 = time.time()
+    lanes = [i for i in range(RS_POINTS) if i != planted][:RS_ECDH_LANES]
+    held("ecdh", sha256(int_bytes(c for i in lanes for c in got[i])) == want["sha256"],
+         f"shared_secrets over {len(lanes)} on-curve lanes")
+    held("ecdh", [[i, str(got[i][0]), str(got[i][1])] for i, _, _ in want["samples"]]
+         == want["samples"], "the sampled lanes")
+    vectors_s += time.time() - t1
     res["ecdh"] = {"points": RS_POINTS, "off_curve_lane": planted, "lanes_checked": len(idx),
+                   "lanes_held": len(lanes),
                    "view_bits": view.bit_length(), "seconds": es,
                    "ladder_steps": view.bit_length(), "batch_inv_readbacks": 4 * view.bit_length(),
                    "launches_per_step": step_launches}
     torch.cuda.synchronize()
     say({"phase": "record_scan", "rows": RS_ROWS, **res,
-         "jax_vectors": {"poseidon": True}, "jax_vectors_seconds": vectors_s,
+         "jax_vectors": {"poseidon": True, "ecdh": True}, "jax_vectors_seconds": vectors_s,
          "launches": _nonzero(all_launches()), "seconds": round(time.time() - t0, 3)})
 
 
@@ -2796,8 +2973,8 @@ def main(argv):
     card = phase_device()
     kres = phase_kernels() if "kernels" in want else None
     srs = None
-    if want & {"msm", "micro", "transfer", "batch", "fixed_base", "limbs_last", "mesh", "sdk",
-               "serve", "bench"}:
+    if want & {"msm", "micro", "transfer", "credits", "batch", "fixed_base", "limbs_last",
+               "mesh", "sdk", "serve", "bench"}:
         t0 = time.time()
         # one SRS for all: max(2n + 1, m) + 1 powers for n = 8192, m = 32768
         # (micro needs fewer and takes the same one); cached where the
@@ -2825,6 +3002,7 @@ def main(argv):
     launches, keys, single_s = None, None, None
     if "transfer" in want:
         launches, keys, single_s = phase_transfer(srs)
+    credits_launches = phase_credits(srs) if "credits" in want else None
     batch_launches = phase_batch(srs, keys, single_s) if "batch" in want else None
     fb_launches = phase_fixed_base(srs, keys) if "fixed_base" in want else None
     bench_launches = phase_bench(srs, keys) if "bench" in want else None
@@ -2837,13 +3015,15 @@ def main(argv):
     serve_launches = phase_serve() if "serve" in want else None
     if "scan_widths" in want:
         phase_scan_widths()
-    if None not in (kres, launches, batch_launches, tool_launches, to_affine_launches,
-                    fb_launches, ll_launches, mesh_launches, sdk_launches, serve_launches,
-                    bench_launches):
+    if None not in (kres, launches, credits_launches, batch_launches, tool_launches,
+                    to_affine_launches, fb_launches, ll_launches, mesh_launches, sdk_launches,
+                    serve_launches, bench_launches):
         # `launches` is a kernel's count on the main path that runs it: the
         # transfer proof (K1-K12 and the inversion tree), to_affine (fq_mul),
-        # the two scripts (the product kernels); `launches_batch` its count
-        # in the k = 4 batch; `launches_fixed_base` in the transfer proof
+        # the two scripts (the product kernels); `launches_credits` its count
+        # in the credits phase (three functions' keys, proofs and
+        # verifications, and join's projective proof); `launches_batch` in
+        # the k = 4 batch; `launches_fixed_base` in the transfer proof
         # with the fixed-base MSM on ("auto") that builds its tables;
         # `launches_limbs_last` in the limbs_last phase; `launches_mesh` in
         # the mesh phase's sharded calls; `launches_sdk` in the sdk phase;
@@ -2854,7 +3034,8 @@ def main(argv):
         say({"kernels": [
             {"name": name, "route": "cuda",
              "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-             "launches": on_path[name], "launches_batch": batch_launches[name],
+             "launches": on_path[name], "launches_credits": credits_launches[name],
+             "launches_batch": batch_launches[name],
              "launches_fixed_base": fb_launches[name],
              "launches_limbs_last": ll_launches.get(name, 0),
              "launches_mesh": mesh_launches.get(name, 0),
