@@ -72,6 +72,12 @@ class LocalAPIClient:
         except LedgerError as e:
             raise ApiError(str(e)) from e
 
+    def get_block_by_hash(self, block_hash: str) -> Block:
+        try:
+            return self.ledger.get_block_by_hash(block_hash)
+        except LedgerError as e:
+            raise ApiError(str(e)) from e
+
     def get_blocks(self, start: int, end: int) -> List[Block]:
         if end - start > MAX_BLOCK_RANGE:
             raise ApiError(
@@ -291,6 +297,11 @@ class HttpAPIClient(LocalAPIClient):
         from . import wire
 
         return wire.block_from_json(self._get(f"block/{height}"))
+
+    def get_block_by_hash(self, block_hash: str) -> Block:
+        from . import wire
+
+        return wire.block_from_json(self._get(f"block/{block_hash}"))
 
     def get_blocks(self, start: int, end: int) -> List[Block]:
         from . import wire

@@ -221,7 +221,11 @@ class DevServer:
         if parts == ["latest", "stateRoot"]:
             return True, api.get_state_root()
         if len(parts) == 2 and parts[0] == "block":
-            return True, wire.block_to_json(api.get_block(int(parts[1])))
+            # a height (digits) or a block hash ("ab1" + hex), as the node's
+            # block/{height_or_hash}
+            blk = (api.get_block(int(parts[1])) if parts[1].isdecimal()
+                   else api.get_block_by_hash(parts[1]))
+            return True, wire.block_to_json(blk)
         if parts == ["blocks"]:
             q = parse_qs(u.query)
             start = int(q["start"][0])

@@ -93,6 +93,12 @@ class Ledger:
             raise LedgerError(f"no block at height {height}")
         return self.blocks[height]
 
+    def get_block_by_hash(self, block_hash: str) -> Block:
+        for blk in self.blocks:
+            if blk.hash == block_hash:
+                return blk
+        raise LedgerError(f"no block with hash {block_hash}")
+
     def state_root(self) -> str:
         payload = f"{self.latest_hash}/{self.commitment_tree.root()}"
         return "sr1" + hashlib.sha256(payload.encode()).hexdigest()

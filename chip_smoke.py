@@ -182,8 +182,11 @@ Phases, each printing one JSON line with its seconds:
             fee (three distinct serial numbers and a fee transition) and a
             split of a record holding more than the split amount and less
             than twice it; HttpAPIClient on the same server reads the height
-            and each transaction, equal to the ledger's; GET /health; (b) the
-            proving worker (ProvingWorker, prove=True): ALEO_TRANSFER
+            and each transaction, equal to the ledger's, and every block of
+            the ledger by its hash, equal to it read by its height
+            ("blocks_by_hash": their count, with the reads' seconds), an
+            unknown hash answered 400; GET /health; (b) the proving worker
+            (ProvingWorker, prove=True): ALEO_TRANSFER
             private_to_public and ALEO_EXECUTE_PROGRAM_ON_CHAIN
             credits.aleo/transfer_public, fee 0, the public balances read
             back; (c) the CLI (`cli.main`, its devnet file under a temporary
@@ -266,6 +269,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ProcessPoolExecutor
 
@@ -2613,6 +2617,18 @@ def _serve_requests(requests):
         for r in requests:
             assert wire.transaction_to_json(http.get_transaction(r["tx"])) == \
                 wire.transaction_to_json(ledger.transactions[r["tx"]])
+        # F6: every block read by its hash, equal to it read by its height
+        t1 = time.time()
+        for blk in ledger.blocks:
+            assert wire.block_to_json(http.get_block_by_hash(blk.hash)) == \
+                wire.block_to_json(http.get_block(blk.height)) == wire.block_to_json(blk), \
+                f"block {blk.height} read by its hash differs"
+        try:
+            urllib.request.urlopen(f"{base}/testnet3/block/ab1{'0' * 64}", timeout=60)
+            raise AssertionError("the server answered an unknown block hash")
+        except urllib.error.HTTPError as e:
+            assert e.code == 400, e.code
+        blocks_by_hash, by_hash_s = len(ledger.blocks), time.time() - t1
         with urllib.request.urlopen(base + "/health", timeout=60) as resp:
             assert json.loads(resp.read()) == "ok"
     finally:
@@ -2681,6 +2697,7 @@ def _serve_requests(requests):
         cli.DEVNET_PATH = saved
         shutil.rmtree(tmp, ignore_errors=True)
     return all_launches(), {"join_serials_distinct": True, "split_record": held[sn],
+                            "blocks_by_hash": blocks_by_hash, "blocks_by_hash_seconds": by_hash_s,
                             "devnet_status_without_cuda": proc.stdout.split("\n")[0]}
 
 

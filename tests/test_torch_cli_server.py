@@ -12,8 +12,10 @@ CLI and server on the same inputs, tolerance 0: the output of `account new
 Then the repairs: F3 in the server (a join with a fee spends three distinct
 records and carries a fee transition; a split takes a record below twice its
 amount, which the JAX server refuses), the lock of `_build.library()` (two
-threads at the first launch build once), and the devnet file (the verifying
-keys' SRS as numpy arrays, loaded onto the device asked for).
+threads at the first launch build once), the devnet file (the verifying
+keys' SRS as numpy arrays, loaded onto the device asked for), and F6 (a block
+read by its hash through `block/<hash>`, which the JAX server parses as a
+height).
 """
 
 import json
@@ -39,7 +41,7 @@ from aleo_tpu_torch import _build, cli
 from aleo_tpu_torch.pcs.srs import Srs
 from aleo_tpu_torch.sdk import encryptor
 from aleo_tpu_torch.sdk.account import PrivateKey
-from aleo_tpu_torch.sdk.api_client import LocalAPIClient
+from aleo_tpu_torch.sdk.api_client import ApiError, HttpAPIClient, LocalAPIClient
 from aleo_tpu_torch.sdk.dev_server import DevServer, _parse_inputs
 from aleo_tpu_torch.sdk.development_client import (
     DevelopmentClient,
@@ -363,3 +365,46 @@ def test_server_split_takes_a_record_below_twice_the_amount(server):
                          n_records=4)
     with pytest.raises(Exception, match="4000000"):
         JDevServer(JClient(jledger)).handle_split(body)
+
+
+# -- F6: a block read by its hash -------------------------------------------------
+
+
+def _get(srv, route):
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{srv.port}/testnet3/{route}", timeout=30
+    ) as resp:
+        return json.loads(resp.read())
+
+
+def test_server_reads_a_block_by_its_hash(server):
+    """block/<hash> answers the block that block/<height> answers, for the
+    genesis block and one made by a transfer through the server; the client
+    reads it back; an unknown hash is an error; the page's card asks the
+    route directly (the JAX page asks find/blockHash, a transaction id's
+    route, and then block/None)."""
+    srv, _alice, ledger = server
+    status, tx_id = _post(srv, "transfer", {
+        "amount": 10_000, "recipient": PrivateKey(seed=2003).address().to_string(),
+        "password": "serverpw", "transfer_type": "private",
+    })
+    assert status == 200
+    new = next(b for b in ledger.blocks if any(t.id == tx_id for t in b.transactions))
+    http = HttpAPIClient(f"http://127.0.0.1:{srv.port}", device=CPU)
+    for blk in (ledger.blocks[0], new):
+        by_hash = _get(srv, f"block/{blk.hash}")
+        assert by_hash == _get(srv, f"block/{blk.height}")
+        assert by_hash["hash"] == blk.hash
+        assert http.get_block_by_hash(blk.hash) == http.get_block(blk.height)
+    assert LocalAPIClient(ledger, device=CPU).get_block_by_hash(new.hash) is new
+    assert _get(srv, f"find/blockHash/{tx_id}") == new.hash
+    unknown = "ab1" + "0" * 64
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _get(srv, f"block/{unknown}")
+    assert e.value.code == 400
+    with pytest.raises(ApiError, match="no block with hash"):
+        http.get_block_by_hash(unknown)
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/") as resp:
+        page = resp.read().decode()
+    card = page.split('title: "Block by hash"')[1].split("title:")[0]
+    assert "get(`/testnet3/block/${v.hash}`)" in card and "find/blockHash" not in card
