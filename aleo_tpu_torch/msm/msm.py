@@ -15,8 +15,17 @@ lanes and streams points into them:
   5. log-depth weighted bucket reduction (tree sums + suffix scans, all as
      full-width batched adds),
   6. window combine (Horner): on host bigints for the prover, whose
-     transcript lives on the host anyway (`msm_fast_host`), or on the device
-     (`msm`).
+     transcript lives on the host anyway (`combine_windows_host`, the one
+     host combine of `msm_fast_host`, `msm_batch_host` and
+     `kzg.commit_many_lf`, in the stage `msm/combine_host`), or on the
+     device (`msm`).
+
+A pipeline run (`msm_windows_batch`) is three `utils.profiling` stages:
+`msm/setup` (steps 1-3, the spare split and the round count's read),
+`msm/rounds` (the round loop of step 4) and `msm/reduce` (the merges and
+step 5). With profiling on, the round count's read also feeds the counters
+`msm/lane_rounds` and `msm/adds`; nothing is timed or counted inside a
+round.
 
 Steps 4 and 5 exist twice, chosen by `config.MSM_AFFINE_MODE`:
 
@@ -46,6 +55,7 @@ from ..curves.g1_affine import G1AF
 from ..curves.g1_fused import G1LF
 from ..fields import limbs
 from ..fields.limbs import STORE
+from ..utils import profiling as prof
 
 NBITS = params.R.bit_length()  # 253
 
@@ -223,71 +233,95 @@ def _merge_partner_idx(k: int, half: int, shift: int, dev) -> torch.Tensor:
 OVERFLOW_FRAC = 8  # spares = lanes // OVERFLOW_FRAC
 
 
-def run_rounds_af(sorted_pt, sorted_sign, table, lane_start, lane_stride,
-                  lane_count, m_exp: int, balance: bool = True) -> G1AF:
-    """Round-robin batch-affine accumulation over a (start, stride, count)
-    lane grid, with tail balancing: the lanes//OVERFLOW_FRAC heaviest
-    segments are split in half, the second halves ride spare lanes, and the
-    spares merge back with one masked add.
+def _spare_split(lane_start, lane_stride, lane_count, balance: bool = True):
+    """Tail balancing of a (start, stride, count) lane grid: the
+    lanes // OVERFLOW_FRAC heaviest segments are split in half, and the
+    second halves ride spare lanes appended to the grid. Returns the grid
+    over main and spare lanes, and the spares' partners (`None` without
+    spares): the mains each spare serves and the mask of split mains."""
+    lanes = lane_start.shape[0]
+    n_spare = lanes // OVERFLOW_FRAC if balance else 0
+    if not n_spare:
+        return lane_start, lane_stride, lane_count, None
+    order = torch.argsort(lane_count, descending=True, stable=True)
+    tgt = order[:n_spare]                          # heaviest mains
+    is_split = torch.zeros((lanes,), dtype=torch.bool, device=lane_start.device)
+    is_split[tgt] = True
+    h = torch.where(is_split, (lane_count + 1) // 2, lane_count)
+    all_start = torch.cat([lane_start, lane_start[tgt] + h[tgt] * lane_stride[tgt]])
+    all_stride = torch.cat([lane_stride, lane_stride[tgt]])
+    all_count = torch.cat([h, lane_count[tgt] - h[tgt]])
+    return all_start, all_stride, all_count, (tgt, is_split)
+
+
+def _round_count(lane_count) -> int:
+    """The one device->host read of a pipeline run: how many rounds its data
+    needs (the largest segment). With profiling on, the same read brings the
+    segments' sum for the counters `msm/lane_rounds` (lanes x rounds, the
+    loop's lane slots) and `msm/adds` (the points added)."""
+    if prof.enabled():
+        rounds, adds = torch.stack([lane_count.max(), lane_count.sum()]).tolist()
+        prof.counter("msm/lane_rounds", lane_count.shape[0] * rounds)
+        prof.counter("msm/adds", adds)
+    else:
+        rounds = int(lane_count.max().item())
+    ROUNDS["rounds"] += rounds
+    return rounds
+
+
+def _accumulate_buckets_af(sorted_pt, sorted_sign, table, lane_start, lane_stride,
+                           lane_count, rounds: int, m_exp: int) -> G1AF:
+    """The round loop, batch-affine: round j adds the j-th point of every
+    lane's segment into the lane's affine accumulator.
 
     sorted_pt / sorted_sign: (m_exp,) point index and sign of every sorted
     (window, digit) entry (kept apart: sign << 31 | id does not fit int32).
     """
     L = table.shape[1] // 2
-    dev = table.device
-    lanes = lane_start.shape[0]
-    n_spare = lanes // OVERFLOW_FRAC if balance else 0
-    if n_spare:
-        order = torch.argsort(lane_count, descending=True, stable=True)
-        tgt = order[:n_spare]                          # heaviest mains
-        is_split = torch.zeros((lanes,), dtype=torch.bool, device=dev)
-        is_split[tgt] = True
-        h = torch.where(is_split, (lane_count + 1) // 2, lane_count)
-        all_start = torch.cat(
-            [lane_start, lane_start[tgt] + h[tgt] * lane_stride[tgt]]
-        )
-        all_stride = torch.cat([lane_stride, lane_stride[tgt]])
-        all_count = torch.cat([h, lane_count[tgt] - h[tgt]])
-    else:
-        all_start, all_stride, all_count = lane_start, lane_stride, lane_count
-    total = lanes + n_spare
-    # the one device->host read of an MSM: how many rounds its data needs
-    max_count = int(all_count.max().item())
-    ROUNDS["rounds"] += max_count
-    acc = ga.identity_af(total, device=dev)
-
-    for j in range(max_count):
-        pos = torch.clamp(all_start + j * all_stride, max=m_exp - 1)
-        valid = (j < all_count).to(STORE)
-        coords = table[sorted_pt[pos]].T.contiguous()       # (2L, total)
+    acc = ga.identity_af(lane_start.shape[0], device=table.device)
+    for j in range(rounds):
+        pos = torch.clamp(lane_start + j * lane_stride, max=m_exp - 1)
+        valid = (j < lane_count).to(STORE)
+        coords = table[sorted_pt[pos]].T.contiguous()       # (2L, lanes)
         px, py = coords[:L], coords[L:]
         # identity sentinel (0, 0): y == 0 never occurs in the subgroup
         pinf = (py.amax(dim=0, keepdim=True) == 0).to(STORE)
         acc = ga.madd(acc, px, py, pinf, sorted_sign[pos], valid)
+    return acc
 
+
+def _merge_spares_af(acc: G1AF, lanes: int, spares) -> G1AF:
+    """The main lanes of `acc`, each split main with its spare added back:
+    one masked add with a runtime partner gather (pidx[i] = spare index
+    serving main i)."""
     main = G1AF(acc.x[:, :lanes], acc.y[:, :lanes], acc.inf[:, :lanes])
-    if n_spare:
-        # merge spares back into their buckets: one masked add with a
-        # runtime partner gather (pidx[i] = spare index serving main i)
-        pidx = torch.zeros((lanes,), dtype=torch.int64, device=dev)
-        pidx[tgt] = torch.arange(n_spare, dtype=torch.int64, device=dev)
-        sx, sy, sinf = acc.x[:, lanes:], acc.y[:, lanes:], acc.inf[:, lanes:]
-        partner = G1AF(sx[:, pidx], sy[:, pidx], sinf[:, pidx])
-        main = ga.add_pairs(main, partner, valid=is_split.to(STORE))
-    return main
+    if spares is None:
+        return main
+    tgt, is_split = spares
+    pidx = torch.zeros((lanes,), dtype=torch.int64, device=acc.x.device)
+    pidx[tgt] = torch.arange(tgt.shape[0], dtype=torch.int64, device=acc.x.device)
+    sx, sy, sinf = acc.x[:, lanes:], acc.y[:, lanes:], acc.inf[:, lanes:]
+    partner = G1AF(sx[:, pidx], sy[:, pidx], sinf[:, pidx])
+    return ga.add_pairs(main, partner, valid=is_split.to(STORE))
 
 
-def _accumulate_buckets_af(
-    sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
-    merge_masks, src_np, keep_np, m_exp: int, half: int, k: int = 1,
-) -> G1AF:
-    """Round-robin batch-affine accumulation + top-window merge/reshuffle.
-    `half` is the lane count of one window, `k` the number of MSMs."""
-    dev = table.device
-    acc = run_rounds_af(
-        sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count, m_exp
-    )
+def run_rounds_af(sorted_pt, sorted_sign, table, lane_start, lane_stride,
+                  lane_count, m_exp: int, balance: bool = True) -> G1AF:
+    """Round-robin batch-affine accumulation over a (start, stride, count)
+    lane grid with tail balancing, in one call: the spare split, the round
+    count's read, the round loop and the spares' merge (the fixed-base
+    MSM's rounds)."""
+    start, stride, count, spares = _spare_split(lane_start, lane_stride, lane_count, balance)
+    acc = _accumulate_buckets_af(sorted_pt, sorted_sign, table, start, stride, count,
+                                 _round_count(count), m_exp)
+    return _merge_spares_af(acc, lane_start.shape[0], spares)
 
+
+def _merge_top_windows_af(acc: G1AF, merge_masks, src_np, keep_np, half: int,
+                          k: int = 1) -> G1AF:
+    """Top-window merge/reshuffle, batch-affine. `half` is the lane count of
+    one window, `k` the number of MSMs."""
+    dev = acc.x.device
     # merge the top windows' sub-accumulators: log2(s) masked adds over those
     # windows' lanes alone (the last `half` lanes of each MSM's grid; no
     # other lane has a partner)
@@ -471,27 +505,25 @@ def _weighted_bucket_sum(p: G1LF, w: int, b: int) -> G1LF:
     return gf.add_lf(X, Y)
 
 
-def _accumulate_buckets(
-    sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
-    merge_masks, src_np, keep_np, m_exp: int, half: int, k: int = 1,
-) -> G1LF:
-    """Round-robin mixed-add accumulation + top-window merge/reshuffle. No
-    tail balancing on this path. `half` is the lane count of one window, `k`
-    the number of MSMs."""
+def _accumulate_buckets(sorted_pt, sorted_sign, table, lane_start, lane_stride,
+                        lane_count, rounds: int, m_exp: int) -> G1LF:
+    """The round loop, projective: round j mixed-adds the j-th point of every
+    lane's segment. No tail balancing on this path."""
     L = table.shape[1] // 2
-    dev = table.device
-    lanes = lane_start.shape[0]
-    # the one device->host read of a batch of MSMs: how many rounds its data
-    # needs
-    max_count = int(lane_count.max().item())
-    ROUNDS["rounds"] += max_count
-    acc = gf.identity_lf(lanes, device=dev)
-    for j in range(max_count):
+    acc = gf.identity_lf(lane_start.shape[0], device=table.device)
+    for j in range(rounds):
         pos = torch.clamp(lane_start + j * lane_stride, max=m_exp - 1)
         valid = (j < lane_count).to(STORE)
         coords = table[sorted_pt[pos]].T.contiguous()       # (2L, lanes)
         acc = gf.add_sel_lf(acc, coords[:L], coords[L:], sorted_sign[pos], valid)
+    return acc
 
+
+def _merge_top_windows(acc: G1LF, merge_masks, src_np, keep_np, half: int,
+                       k: int = 1) -> G1LF:
+    """Top-window merge/reshuffle, projective. `half` is the lane count of
+    one window, `k` the number of MSMs."""
+    dev = acc.x.device
     # merge the top windows' sub-accumulators: log2(s) masked adds over those
     # windows' lanes alone (the last `half` lanes of each MSM's grid; no
     # other lane has a partner)
@@ -551,27 +583,37 @@ def msm_windows_batch(scalars_raw: torch.Tensor, table: torch.Tensor, c: int) ->
     w_total = _nwin(c)
     half = 1 << (c - 1)
     m_exp = k * w_total * n  # expanded (MSM, window, point) triples
+    affine = _use_affine()
 
-    digits = signed_digits(scalars_raw, c)  # (k, W, N) int32
-    mag = digits.abs().to(torch.int64)
-    sign = (digits < 0).to(STORE)
+    with prof.stage("msm/setup"):
+        digits = signed_digits(scalars_raw, c)  # (k, W, N) int32
+        mag = digits.abs().to(torch.int64)
+        sign = (digits < 0).to(STORE)
 
-    ids = torch.arange(k * w_total, dtype=torch.int64, device=dev).repeat_interleave(n)
-    keys = _sort_keys(ids // w_total, ids % w_total, mag.reshape(-1), c)
-    pt_ids = torch.arange(n, dtype=torch.int64, device=dev).repeat(k * w_total)
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    sorted_pt = pt_ids[perm]
-    sorted_sign = sign.reshape(-1)[perm]
+        ids = torch.arange(k * w_total, dtype=torch.int64, device=dev).repeat_interleave(n)
+        keys = _sort_keys(ids // w_total, ids % w_total, mag.reshape(-1), c)
+        pt_ids = torch.arange(n, dtype=torch.int64, device=dev).repeat(k * w_total)
+        sorted_keys, perm = torch.sort(keys, stable=True)
+        sorted_pt = pt_ids[perm]
+        sorted_sign = sign.reshape(-1)[perm]
 
-    lane_start, lane_stride, lane_count, merge_masks, src_np, keep_np, _s = (
-        _bucket_grid(sorted_keys, c, w_total, k)
-    )
-    grid = (sorted_pt, sorted_sign, table, lane_start, lane_stride, lane_count,
-            merge_masks, src_np, keep_np, m_exp, half, k)
-    if _use_affine():
-        buckets = _accumulate_buckets_af(*grid)
-        return ga.to_lf(_weighted_bucket_sum_af(buckets, k * w_total, half))
-    return _weighted_bucket_sum(_accumulate_buckets(*grid), k * w_total, half)
+        lane_start, lane_stride, lane_count, merge_masks, src_np, keep_np, _s = (
+            _bucket_grid(sorted_keys, c, w_total, k)
+        )
+        # tail balancing on the batch-affine path only
+        start, stride, count, spares = _spare_split(lane_start, lane_stride, lane_count,
+                                                    balance=affine)
+        rounds = _round_count(count)
+    grid = (sorted_pt, sorted_sign, table, start, stride, count, rounds, m_exp)
+    with prof.stage("msm/rounds"):
+        acc = _accumulate_buckets_af(*grid) if affine else _accumulate_buckets(*grid)
+    with prof.stage("msm/reduce"):
+        if affine:
+            buckets = _merge_top_windows_af(_merge_spares_af(acc, lane_start.shape[0], spares),
+                                            merge_masks, src_np, keep_np, half, k)
+            return ga.to_lf(_weighted_bucket_sum_af(buckets, k * w_total, half))
+        buckets = _merge_top_windows(acc, merge_masks, src_np, keep_np, half, k)
+        return _weighted_bucket_sum(buckets, k * w_total, half)
 
 
 def _combine_device(windows: G1LF, c: int) -> G1Points:
@@ -614,9 +656,19 @@ def horner_windows_host(pts, c: int):
     return acc
 
 
-def combine_windows_host(windows: G1LF, c: int):
-    """Decode per-window totals and Horner-combine with host bigints."""
-    return horner_windows_host(gf.decode_lf(windows), c)
+def combine_windows_host(windows: G1LF, c: int, k: int = 1) -> list:
+    """Per-window totals of k MSMs (batch axis k * W, MSM-major) -> the k
+    host affine points: one normalize and one device->host read of all
+    k * W totals (`gf.decode_lf`), then a Horner combine on host bigints for
+    each MSM. The one host combine of `msm_fast_host`, `msm_batch_host` and
+    `kzg.commit_many_lf`, timed and marked as the stage `msm/combine_host`
+    (the decode inside it: the card falls idle while the host waits there).
+    """
+    with prof.stage("msm/combine_host"):
+        pts = gf.decode_lf(windows)
+        w_total = len(pts) // k
+        return [horner_windows_host(pts[p * w_total : (p + 1) * w_total], c)
+                for p in range(k)]
 
 
 def msm_fast_host(scalars_raw: torch.Tensor, table: torch.Tensor, c: int | None = None):
@@ -628,22 +680,20 @@ def msm_fast_host(scalars_raw: torch.Tensor, table: torch.Tensor, c: int | None 
     """
     if c is None:
         c = auto_c(scalars_raw.shape[0])
-    return combine_windows_host(msm_windows(scalars_raw, table, c=c), c)
+    return combine_windows_host(msm_windows(scalars_raw, table, c=c), c)[0]
 
 
 def msm_batch_host(scalars_raw: torch.Tensor, table: torch.Tensor, c: int | None = None):
     """k MSMs over one table -> k host affine points (one device bucket
-    pipeline for the batch, one decode and one transfer of all k * W window
-    totals, then a host window combine for each MSM)."""
+    pipeline for the batch, then `combine_windows_host` over all k * W
+    window totals)."""
     k = scalars_raw.shape[0]
     if c is None:
         c = auto_c(scalars_raw.shape[1])
     # the reference packs its sort key into 32 bits; the port's keys are
     # int64 and would hold more, but both take the same batches
     assert c + 8 + k.bit_length() <= 32, "sort key packing overflow"
-    pts = gf.decode_lf(msm_windows_batch(scalars_raw, table, c=c))
-    w_total = _nwin(c)
-    return [horner_windows_host(pts[p * w_total : (p + 1) * w_total], c) for p in range(k)]
+    return combine_windows_host(msm_windows_batch(scalars_raw, table, c=c), c, k)
 
 
 def msm_host(scalars, points_affine, c: int | None = None, device=None):

@@ -23,7 +23,7 @@ from ..curves import g1_fused as gf
 from ..fields import fr_lf as flf
 from ..msm import fixed_base
 from ..msm.msm import (
-    auto_c, horner_windows_host, make_table, msm, msm_fast_host, msm_windows,
+    auto_c, combine_windows_host, make_table, msm, msm_fast_host, msm_windows,
 )
 from ..reference.curve import G1, G2, pairing_check
 from ..utils import profiling as prof
@@ -124,7 +124,6 @@ def commit_shifted_lf(srs: Srs, coeffs_lf: torch.Tensor, shift: int,
     """
     n = coeffs_lf.shape[1]
     assert shift + n <= srs.max_degree + 1, "shifted polynomial exceeds SRS"
-    prof.counter("kzg/commit_points", n)
     with prof.stage("kzg/commit"):
         coeffs_lf = pl_lf.pad_to(coeffs_lf, _pad_size(srs, n, shift))
         raw = flf.from_mont(coeffs_lf).T.contiguous()
@@ -152,8 +151,9 @@ def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
     slice. Otherwise a size group shares one
     gather table; its MSMs run one after another and the per-window totals
     of the whole group are normalized on the device and read back in ONE
-    host transfer. shift > 0 commits X^shift * p_i against the SRS points
-    from `shift` on (shared-offset degree-bound commitments).
+    host transfer (`msm.combine_windows_host`). shift > 0 commits
+    X^shift * p_i against the SRS points from `shift` on (shared-offset
+    degree-bound commitments).
     """
     groups = {}
     for i, p in enumerate(polys_lf):
@@ -162,8 +162,6 @@ def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
     for n_pad, idxs in groups.items():
         assert shift + n_pad <= srs.max_degree + 1
         if _use_fixed_base(n_pad):
-            for i in idxs:
-                prof.counter("kzg/commit_points", polys_lf[i].shape[1])
             with prof.stage("kzg/commit"):
                 ft = fixed_base.srs_table(srs, n_pad, shift)
                 raws = [flf.from_mont(pl_lf.pad_to(polys_lf[i], n_pad)).T for i in idxs]
@@ -175,17 +173,16 @@ def commit_many_lf(srs: Srs, polys_lf, c: int | None = None, shift: int = 0):
         cg = c if c is not None else auto_c(n_pad)
         wins = []
         for i in idxs:
-            prof.counter("kzg/commit_points", polys_lf[i].shape[1])
             with prof.stage("kzg/commit"):
                 raw = flf.from_mont(pl_lf.pad_to(polys_lf[i], n_pad)).T.contiguous()
                 wins.append(msm_windows(raw, table, c=cg))
-        W = wins[0].x.shape[1]
-        # one normalize and one device->host transfer for the whole group
-        pts = gf.decode_lf(gf.G1LF(*(
+        # one normalize and one device->host transfer for the whole group,
+        # outside `kzg/commit`
+        pts = combine_windows_host(gf.G1LF(*(
             torch.cat([getattr(w, k) for w in wins], dim=1) for k in "xyz"
-        )))
-        for j, i in enumerate(idxs):
-            out[i] = horner_windows_host(pts[j * W : (j + 1) * W], cg)
+        )), cg, len(idxs))
+        for i, p in zip(idxs, pts):
+            out[i] = p
     return out
 
 

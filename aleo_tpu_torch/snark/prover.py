@@ -53,8 +53,6 @@ import random as _random
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
-import time
-
 import torch
 
 from .. import params
@@ -222,10 +220,8 @@ def prove(index: Index, cs: ConstraintSystem, rng=None) -> Proof:
         ipolys[f"cval_{mn}"] = mi.cval_poly.T
         ipolys[f"rcp_{mn}"] = mi.rcp_poly.T
 
-    prof.counter("prove/constraints", cs.num_constraints)
     # ---- rowcheck quotient h0 ----------------------------------------------
     # masked deg(z_M) = n+1, so deg(za*zb) = 2n+2: evaluate on a 4n coset.
-    t_r1 = time.perf_counter()
     za_c = dntt.coset_ntt_lf(pl.pad_to(zm_polys["A"], 4 * n), SHIFT)
     zb_c = dntt.coset_ntt_lf(pl.pad_to(zm_polys["B"], 4 * n), SHIFT)
     zc_c = dntt.coset_ntt_lf(pl.pad_to(zm_polys["C"], 4 * n), SHIFT)
@@ -250,7 +246,6 @@ def prove(index: Index, cs: ConstraintSystem, rng=None) -> Proof:
                 h0_poly, qx_poly, s_mask_poly]
     with _s("prove/commit_r1"):
         commitments.update(zip(r1_names, kzg.commit_many_lf(srs, r1_polys)))
-    prof.counter("prove/r1_quotients_s", time.perf_counter() - t_r1)
 
     # ---- transcript / round 1 ----------------------------------------------
     tr = Transcript("varuna")

@@ -1,19 +1,24 @@
 """Stage timers and throughput counters.
 
   * `stage(name)`: context manager accumulating wall-clock per named stage
-    (the prover annotates its rounds). When a CUDA device is in use the
-    stage synchronises before it starts and before it stops the clock, so
-    the time is the device's work and not the enqueue.
-  * `counter(name, n)`: accumulate a throughput numerator (points,
-    constraints).
+    (the prover annotates its rounds, the MSM pipeline its phases). When a
+    CUDA device is in use the stage synchronises before it starts and
+    before it stops the clock, so the time is the device's work and not the
+    enqueue. While a torch profiler is recording (`trace()`, or any other)
+    the stage is also a range of that name on the host's timeline, timers
+    on or off, so a trace shows the stages beside the kernels they launch.
+  * `counter(name, n)`: accumulate a count (the MSM's lane rounds and
+    adds).
   * `report()` / `reset()`: snapshot and clear.
   * `trace(log_dir)`: a `torch.profiler` trace of the block (Chrome /
     TensorBoard JSON) written into `log_dir` or ALEO_TORCH_TRACE_DIR; does
     nothing when neither is set.
 
 Enabled when ALEO_TORCH_PROFILE=1 or after `enable()`; near-zero overhead
-when disabled (the context manager short-circuits, and nothing
-synchronises).
+when disabled and no profiler records (the context manager short-circuits
+after one flag check, and nothing synchronises). Callers reach `stage` and
+`counter` through the module at call time (`prof.stage(...)`), so a
+wrapper set on the module sees every stage.
 """
 
 from __future__ import annotations
@@ -50,19 +55,28 @@ def _sync() -> None:
 
 @contextlib.contextmanager
 def stage(name: str):
-    if not _enabled:
+    marked = torch.autograd._profiler_enabled()
+    if not (_enabled or marked):
         yield
         return
-    _sync()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
+    # an operator-kind range (`cpu_op`), not `record_function`'s user
+    # annotation: the profiler mirrors each user annotation onto the device's
+    # timeline as a span over its kernels, which readers of the trace would
+    # take for device work
+    with torch._C._profiler._RecordFunctionFast(name) if marked else contextlib.nullcontext():
+        if not _enabled:
+            yield
+            return
         _sync()
-        dt = time.perf_counter() - t0
-        with _lock:
-            _times[name] += dt
-            _calls[name] += 1
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync()
+            dt = time.perf_counter() - t0
+            with _lock:
+                _times[name] += dt
+                _calls[name] += 1
 
 
 def counter(name: str, n: float) -> None:
