@@ -5,8 +5,9 @@ proving of multi-record transactions): all k proofs share one `Index` (same
 function circuit), so every device stage (spmv, NTTs, elementwise rounds,
 batched inversions, evaluations, folds) runs once for the whole batch, and
 every round's commitments go through `kzg.commit_many_lf` (one gather table
-for the k polynomials of a stack, their MSMs one after another, one
-readback for the stack).
+for the k polynomials of a stack, their k MSMs in one bucket pipeline, one
+readback for the stack; the JAX package runs them one after another, as
+its TPU gained nothing from the k-way pipeline).
 
 Layout. At this module's helper boundaries a batch is the reference's
 (k, L, n) stack (proof axis leading; evaluations (k, L, 1)), which is also
@@ -185,7 +186,7 @@ def _const_b(vals: List[int], n: int = 1, device=None) -> torch.Tensor:
 
 def _commit_batch(srs, stack, c=None, shift=0):
     """stack (k, L, n) -> k host affine points (`kzg.commit_many_lf`: one
-    gather table for the stack, one readback)."""
+    gather table and one bucket pipeline for the stack, one readback)."""
     return kzg.commit_many_lf(
         srs, [stack[i] for i in range(stack.shape[0])], c=c, shift=shift
     )

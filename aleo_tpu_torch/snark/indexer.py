@@ -150,7 +150,7 @@ def index_r1cs(cs: ConstraintSystem, srs: Srs | None = None, seed: bytes = b"ale
         cval_poly = dntt.intt(cval_ev)
         rcp_poly = dntt.intt(rcp_ev)
         # one grouped call: the four index commitments share one gather
-        # table and one readback (kzg.commit_many_lf)
+        # table, one bucket pipeline and one readback (kzg.commit_many_lf)
         cms = kzg.commit_many_lf(
             srs, [p.T for p in (row_poly, col_poly, cval_poly, rcp_poly)]
         )

@@ -19,11 +19,13 @@ from aleo_tpu.pcs.srs import Srs as JSrs
 from aleo_tpu.reference import polynomial as rpoly
 from aleo_tpu.snark import sparse as jsparse
 from aleo_tpu_torch.fields import fr_lf as tlf
+from aleo_tpu_torch.msm import msm as tmsm
 from aleo_tpu_torch.pcs import kzg as tkzg
 from aleo_tpu_torch.pcs import poly_lf as tpl
 from aleo_tpu_torch.pcs.srs import Srs as TSrs
 from aleo_tpu_torch.pcs.srs import srs_from_numpy
 from aleo_tpu_torch.snark import sparse as tsparse
+from aleo_tpu_torch.utils import profiling
 
 R = params.R
 DEG = 64
@@ -86,15 +88,98 @@ def test_commit_shifted_lf_matches_jax_and_dense(srs_pair, n, shift):
     assert got == tkzg.commit_lf(tsrs, dense)
 
 
-@pytest.mark.parametrize("shift", [0, 30])
-def test_commit_many_lf_matches_jax(srs_pair, shift):
-    jsrs, tsrs = srs_pair
-    rng = random.Random(70 + shift)
-    sizes = [16, 9, 16, 33, 3]
+# (sizes, index of an all-zero polynomial or None, shift): the mixed list
+# spans three padded sizes (16, 64 and 4; 35 at shift 30); the others are
+# one size group of k = 1, 2 and 8, one with an all-zero member
+MANY_CASES = [
+    pytest.param([16, 9, 16, 33, 3], None, 0, id="0"),
+    pytest.param([16, 9, 16, 33, 3], None, 30, id="30"),
+    pytest.param([13], None, 0, id="k1-0"),
+    pytest.param([13], None, 30, id="k1-30"),
+    pytest.param([16, 9], None, 0, id="k2-0"),
+    pytest.param([16, 9], None, 30, id="k2-30"),
+    pytest.param([16, 9, 12, 16, 10, 15, 16, 11], None, 0, id="k8-0"),
+    pytest.param([16, 9, 12, 16, 10, 15, 16, 11], None, 30, id="k8-30"),
+    pytest.param([16, 9, 12], 1, 0, id="zero-0"),
+    pytest.param([16, 9, 12], 1, 30, id="zero-30"),
+]
+
+
+def _many(sizes, zero, seed):
+    rng = random.Random(seed)
     polys = [_poly(rng, n) for n in sizes]
+    if zero is not None:
+        zs = [0] * sizes[zero]
+        polys[zero] = (zs, jlf.encode(zs), tlf.encode(zs, device="cpu"))
+    return polys
+
+
+@pytest.fixture
+def profiled():
+    """Profiling on and a clean report for the test; the former state after."""
+    was = profiling.enabled()
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        yield
+    finally:
+        profiling.enable(was)
+        profiling.reset()
+
+
+@pytest.mark.parametrize("sizes,zero,shift", MANY_CASES)
+def test_commit_many_lf_matches_jax(srs_pair, sizes, zero, shift):
+    """One bucket pipeline per size group gives each polynomial's own
+    commitment (`commit_lf` / `commit_shifted_lf`) and the JAX package's
+    `commit_many_lf`, which runs a group's MSMs one after another."""
+    jsrs, tsrs = srs_pair
+    polys = _many(sizes, zero, 70 + shift + len(sizes))
     got = tkzg.commit_many_lf(tsrs, [p[2] for p in polys], shift=shift)
+    assert got == [tkzg.commit_shifted_lf(tsrs, p[2], shift) for p in polys]
+    if zero is not None:
+        assert got[zero] is None                     # the identity
     want = jkzg.commit_many_lf(jsrs, [p[1] for p in polys], shift=shift)
     assert got == want
+
+
+@pytest.mark.parametrize("sizes,pipelines", [
+    pytest.param([13], [1], id="k1"),
+    pytest.param([16, 9], [2], id="k2"),
+    pytest.param([16, 9, 12, 16, 10, 15, 16, 11], [8], id="k8"),
+    pytest.param([16, 9, 33, 3, 12], [3, 1, 1], id="three_groups"),
+])
+def test_commit_many_lf_runs_one_pipeline_per_size_group(srs_pair, monkeypatch, profiled,
+                                                         sizes, pipelines):
+    """With profiling on: one round count read, one `msm/setup` and one host
+    combine per size group, and the counters `kzg/msms` / `kzg/pipelines`
+    at (MSMs, pipelines); `pipelines` lists each group's k."""
+    _, tsrs = srs_pair
+    polys = [p[2] for p in _many(sizes, None, 90 + len(sizes))]
+    reads = []
+    round_count = tmsm._round_count
+    monkeypatch.setattr(tmsm, "_round_count", lambda count: reads.append(1) or round_count(count))
+    got = tkzg.commit_many_lf(tsrs, polys)
+    report = profiling.report()
+    assert len(reads) == len(pipelines)
+    assert report["msm/setup"]["calls"] == report["msm/combine_host"]["calls"] == len(pipelines)
+    assert report["kzg/commit"]["calls"] == len(pipelines)
+    assert report["count/kzg/msms"]["total"] == len(sizes) == sum(pipelines)
+    assert report["count/kzg/pipelines"]["total"] == len(pipelines)
+    assert got == [tkzg.commit_lf(tsrs, p) for p in polys]
+
+
+def test_commit_many_lf_splits_a_group_past_the_pipeline_cap(srs_pair, monkeypatch, profiled):
+    """A size group of more than `MAX_PIPELINE_POINTS` points runs as several
+    pipelines of at most that many points, in order: five polynomials of 16
+    points under a cap of 32 run as pipelines of 2, 2 and 1 MSMs."""
+    _, tsrs = srs_pair
+    polys = [p[2] for p in _many([16, 9, 12, 16, 10], None, 95)]
+    monkeypatch.setattr(tkzg, "MAX_PIPELINE_POINTS", 32)
+    got = tkzg.commit_many_lf(tsrs, polys)
+    report = profiling.report()
+    assert report["count/kzg/msms"]["total"] == 5
+    assert report["count/kzg/pipelines"]["total"] == 3
+    assert got == [tkzg.commit_lf(tsrs, p) for p in polys]
 
 
 def test_batch_open_at_lf_matches_jax_and_verifies(srs_pair):

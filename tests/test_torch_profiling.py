@@ -163,11 +163,14 @@ def _cubic(x):
 def test_a_proof_reports_no_removed_counter(profiled):
     """A proof's report has the MSM's stages and counters, and none of the
     counters that no reader took (a constraint count, a host clock without a
-    sync, the commitments' points)."""
+    sync, the commitments' points). Each bucket pipeline has its one host
+    combine, and the grouped commitments share pipelines: fewer pipelines
+    than MSMs in `kzg/pipelines` / `kzg/msms`."""
     index = indexer.index_r1cs(_cubic(3), srs=Srs.generate(17, seed=b"profiling", device="cpu"))
     profiling.reset()
     prover.prove(index, _cubic(3), rng=random.Random(7))
     report = profiling.report()
     assert not set(REMOVED_COUNTERS) & set(report)
     assert set(MSM_STAGES) | {"count/msm/adds", "count/msm/lane_rounds", "kzg/commit"} <= set(report)
-    assert report["msm/combine_host"]["calls"] < report["msm/setup"]["calls"]
+    assert report["msm/combine_host"]["calls"] == report["msm/setup"]["calls"]
+    assert 0 < report["count/kzg/pipelines"]["total"] < report["count/kzg/msms"]["total"]
